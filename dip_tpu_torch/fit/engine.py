@@ -1,0 +1,206 @@
+"""The DIP fit loop: jitter, forward, loss, backward, Adam, EMA, metrics and
+PSNR backtracking, one step at a time on one device.
+
+Counterpart of dip_tpu/fit/engine.py, which scans the same step body on
+device. Here PyTorch runs eagerly; the loop stays free of host syncs
+inside a `log_every` chunk: metrics stay 0-d device tensors, and
+backtracking restores or refreshes its on-device snapshot with
+torch.where on a device-side condition.
+
+Semantics (as the JAX engine):
+ - input jitter: z_used = z + N(0,1) * reg_noise_std each step;
+ - EMA output smoothing, initialised to the first output;
+ - backtracking: if the tracked PSNR drops more than
+   `backtrack_threshold` dB below the last good value, restore the
+   snapshot (the params before the last good update) and skip this
+   update; otherwise the snapshot becomes the params before this update.
+   The optimizer's moments are not restored.
+ - compute_dtype='bfloat16': params and z are cast each step (master
+   params stay f32, the output goes back to f32 before the loss); no
+   autocast.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+from torch.func import functional_call
+
+from dip_tpu_torch.ops.losses import psnr
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    num_iter: int = 3000
+    lr: float = 0.01
+    optimizer: str = "adam"
+    reg_noise_std: float = 0.0        # input jitter std
+    exp_weight: float | None = None   # EMA factor, e.g. 0.99
+    backtrack: bool = False
+    backtrack_threshold: float = 5.0
+    log_every: int = 100              # steps between host syncs
+    compute_dtype: str | None = None  # 'bfloat16' for mixed precision
+
+
+@dataclasses.dataclass
+class FitState:
+    """Mutable fit state; Engine.step updates it in place."""
+
+    params: dict[str, torch.Tensor]    # the model's f32 master parameters
+    opt: torch.optim.Optimizer
+    z: torch.Tensor                    # saved base input
+    ema_out: torch.Tensor | None       # None until the first step
+    generator: torch.Generator         # input jitter, on the fit's device
+    snapshot: dict[str, torch.Tensor]  # params for backtracking ({} if off)
+    last_track: torch.Tensor           # tracked PSNR at the last good step
+    step: int
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The fit's device; raises if it is a CUDA device and there is none."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def disable_tf32() -> dict:
+    """Turn both TF32 switches off explicitly (f32 convs and matmuls run in
+    full f32; cuDNN's default is TF32) and return them, for printing beside
+    every timing."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return tf32_flags()
+
+
+def tf32_flags() -> dict:
+    return {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+class Engine:
+    """Per-image DIP fit.
+
+    Args:
+        model: an nn.Module mapping z (1,H,W,Cin) -> image (1,H,W,Cout),
+            moved to `device` here.
+        loss_fn: (params, out, aux) -> 0-d loss tensor.
+        cfg: FitConfig.
+        metrics_fn: optional (out, ema_out, aux) -> dict of 0-d tensors; with
+            backtracking it must give 'psnr_track' (PSNR vs the fit target).
+        device: where the fit runs ('cuda' or 'cpu'); no default.
+    """
+
+    def __init__(self, model: torch.nn.Module, loss_fn: Callable, cfg: FitConfig,
+                 metrics_fn: Callable | None = None, *, device: torch.device | str):
+        if cfg.optimizer != "adam":
+            raise ValueError(f"optimizer {cfg.optimizer!r} is not ported yet; only 'adam'")
+        if cfg.compute_dtype not in (None, "bfloat16"):
+            raise ValueError(f"unsupported compute_dtype {cfg.compute_dtype!r}")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.loss_fn = loss_fn
+        self.cfg = cfg
+        self.metrics_fn = metrics_fn
+        self.tf32 = disable_tf32()
+
+    def init_state(self, seed: int, z: torch.Tensor) -> FitState:
+        """Initialise the weights from `seed` (on a CPU generator, so every
+        device gets the same weights), the optimizer and the jitter stream."""
+        self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        params = dict(self.model.named_parameters())
+        opt = torch.optim.Adam(params.values(), lr=self.cfg.lr)
+        jitter = torch.Generator(device=self.device).manual_seed(seed + 1)
+        snapshot = ({k: p.detach().clone() for k, p in params.items()}
+                    if self.cfg.backtrack else {})
+        return FitState(params=params, opt=opt, z=z.to(self.device), ema_out=None,
+                        generator=jitter, snapshot=snapshot,
+                        last_track=torch.zeros((), device=self.device), step=0)
+
+    def _forward(self, params: dict[str, torch.Tensor], z: torch.Tensor) -> torch.Tensor:
+        if self.cfg.compute_dtype is None:
+            return self.model(z)
+        cast = {k: v.to(torch.bfloat16) for k, v in params.items()}
+        return functional_call(self.model, cast, (z.to(torch.bfloat16),)).to(torch.float32)
+
+    def step(self, state: FitState, aux: Any) -> tuple[FitState, dict]:
+        cfg = self.cfg
+        z_used = state.z
+        if cfg.reg_noise_std > 0:
+            z_used = z_used + cfg.reg_noise_std * torch.randn(
+                state.z.shape, generator=state.generator, device=self.device,
+                dtype=state.z.dtype)
+        out = self._forward(state.params, z_used)
+        loss = self.loss_fn(state.params, out, aux)
+        state.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if cfg.backtrack:
+            pre = {k: p.detach().clone() for k, p in state.params.items()}
+        state.opt.step()
+
+        out = out.detach()
+        if cfg.exp_weight is None or state.step == 0:
+            ema = out
+        else:
+            ema = state.ema_out * cfg.exp_weight + out * (1 - cfg.exp_weight)
+
+        metrics = {"loss": loss.detach()}
+        if self.metrics_fn is not None:
+            metrics.update(self.metrics_fn(out, ema, aux))
+
+        if cfg.backtrack:
+            track = metrics["psnr_track"]
+            drop = (track - state.last_track) < -cfg.backtrack_threshold
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    snap = state.snapshot[k]
+                    p.copy_(torch.where(drop, snap, p))
+                    state.snapshot[k] = torch.where(drop, snap, pre[k])
+            state.last_track = torch.where(drop, state.last_track, track)
+            metrics["backtracked"] = drop.to(torch.float32)
+
+        state.ema_out = ema
+        state.step += 1
+        return state, metrics
+
+    def run(self, state: FitState, aux: Any,
+            callback: Callable[[int, dict, FitState], None] | None = None):
+        """Run cfg.num_iter steps in chunks of log_every. The host syncs at a
+        chunk's end only if `callback` is given, else once at the end.
+        Returns (state, history of per-step metrics as numpy arrays)."""
+        remaining, it = self.cfg.num_iter, 0
+        chunks: list[dict] = []
+        while remaining > 0:
+            n = min(self.cfg.log_every, remaining)
+            hist = [self.step(state, aux)[1] for _ in range(n)]
+            chunks.append({k: torch.stack([m[k] for m in hist]) for k in hist[0]})
+            remaining -= n
+            it += n
+            if callback is not None:
+                callback(it, {k: v.cpu().numpy() for k, v in chunks[-1].items()}, state)
+        history = {k: torch.cat([c[k] for c in chunks]).cpu().numpy() for k in chunks[0]}
+        return state, history
+
+    def render(self, state: FitState) -> torch.Tensor:
+        """Final forward pass with the saved (un-jittered) input."""
+        with torch.no_grad():
+            return self._forward(state.params, state.z)
+
+
+def default_metrics(target: torch.Tensor, gt: torch.Tensor | None = None):
+    """PSNR vs the fit target (tracked for backtracking), plus PSNR of the
+    raw and EMA outputs vs the ground truth when given."""
+    def fn(out, ema, aux):
+        m = {"psnr_track": psnr(out, target)}
+        if gt is not None:
+            m["psnr_gt"] = psnr(out, gt)
+            m["psnr_gt_sm"] = psnr(ema, gt)
+        return m
+    return fn

@@ -1,0 +1,205 @@
+"""Building blocks of the skip net, NHWC at every public function.
+
+Counterpart of dip_tpu/models/blocks.py. Convolution weights are OIHW
+(PyTorch's layout); activations stay NHWC, and a contiguous NHWC tensor
+`.permute(0, 3, 1, 2)` is an NCHW tensor in channels_last memory, which
+F.conv2d takes without a copy. BatchNorm is always in train mode and keeps
+no running statistics: DIP fits one image, so batch statistics are the
+image's statistics.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from dip_tpu_torch.ops.pad import pad2d
+from dip_tpu_torch.ops.up_conv import Up2, up2_conv3x3, up2_moments
+
+
+def torch_conv_init_(weight: torch.Tensor, bias: torch.Tensor | None,
+                     generator: torch.Generator) -> None:
+    """PyTorch's Conv2d default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the
+    kernel and the bias, drawn on the CPU so that init is the same on every
+    device."""
+    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        for p in (weight, bias):
+            if p is not None:
+                p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+
+
+def act(x: torch.Tensor, act_fun: str | Callable = "LeakyReLU") -> torch.Tensor:
+    if callable(act_fun):
+        return act_fun(x)
+    if act_fun == "LeakyReLU":
+        return F.leaky_relu(x, 0.2)
+    if act_fun == "Swish":
+        return x * torch.sigmoid(x)
+    if act_fun == "ELU":
+        return F.elu(x)
+    if act_fun == "ReLU":
+        return F.relu(x)
+    if act_fun == "none":
+        return x
+    raise ValueError(f"unknown activation {act_fun!r}")
+
+
+def _moments(p: torch.Tensor | Up2) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (mean, var) over (N, H, W): one pass of sum and sum of
+    squares with f32 sums, returned in p's dtype. Up2 parts take their HR
+    moments from the LR tensor."""
+    if isinstance(p, Up2):
+        return up2_moments(p.x, p.mode)
+    m = p.shape[0] * p.shape[1] * p.shape[2]
+    pf = p.to(torch.float32)
+    mean = pf.sum((0, 1, 2)) / m
+    var = torch.clamp((pf * pf).sum((0, 1, 2)) / m - mean * mean, min=0.0)
+    return mean.to(p.dtype), var.to(p.dtype)
+
+
+class TrainBatchNorm(nn.Module):
+    """Affine batch norm by current batch statistics (BatchNorm2d in
+    training mode, without running averages).
+
+    Takes a tensor or a list of NHWC parts standing for their channel
+    concat: each part is normalised with its slice of the full-width
+    weight and bias, which equals BN of the concat without building it.
+    `as_affine=True` returns (x, s, t) with BN(x) == x * s + t per channel,
+    for a following Conv to fold in.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def _affine(self, p, off: int):
+        ci = p.shape[-1]
+        mean, var = _moments(p)
+        s = torch.rsqrt(var + self.eps) * self.weight[off:off + ci]
+        t = -mean * s + self.bias[off:off + ci]
+        return s, t
+
+    def forward(self, x, as_affine: bool = False):
+        parts = isinstance(x, (list, tuple))
+        xs = list(x) if parts else [x]
+        if as_affine:
+            ss, ts, off = [], [], 0
+            for p in xs:
+                s, t = self._affine(p, off)
+                ss.append(s)
+                ts.append(t)
+                off += p.shape[-1]
+            return x, torch.cat(ss), torch.cat(ts)
+        out, off = [], 0
+        for p in xs:
+            ci = p.shape[-1]
+            if isinstance(p, Up2):
+                s, t = self._affine(p, off)
+                y = p.affine(s, t)
+            else:
+                mean, var = _moments(p)
+                y = (p - mean) * torch.rsqrt(var + self.eps)
+                y = y * self.weight[off:off + ci] + self.bias[off:off + ci]
+            out.append(y)
+            off += ci
+        return out if parts else out[0]
+
+
+def _conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int,
+            padding: int) -> torch.Tensor:
+    """NHWC in, NHWC out, OIHW weight."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride, padding)
+    return y.permute(0, 2, 3, 1)
+
+
+class Conv(nn.Module):
+    """Padded conv; takes a tensor or a list of NHWC parts (a virtual
+    channel concat: conv(concat(parts), W) == sum_i conv(part_i, W_i)).
+
+    `in_scale`/`in_shift` fold a preceding per-channel affine map (a BN
+    from TrainBatchNorm(as_affine=True)) into the conv:
+    conv(x*s + t, W) == conv(x, W*s) + sum_hwi W[:, i, h, w] * t[i], exact
+    for reflection/replication padding and for 1x1 convs. Up2 parts go to
+    the fused seam, up2_conv3x3.
+    """
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 stride: int = 1, bias: bool = True, pad: str = "zero",
+                 downsample_mode: str = "stride"):
+        super().__init__()
+        if stride != 1 and downsample_mode != "stride":
+            raise ValueError(
+                f"downsample_mode {downsample_mode!r} is not ported yet; only 'stride'")
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.pad = pad
+        self.weight = nn.Parameter(
+            torch.empty(features, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(features)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        torch_conv_init_(self.weight, self.bias, generator)
+
+    def forward(self, x, in_scale: torch.Tensor | None = None,
+                in_shift: torch.Tensor | None = None) -> torch.Tensor:
+        ks, stride = self.kernel_size, self.stride
+        if in_scale is not None and ks > 1 and self.pad not in (
+                "reflection", "replication"):
+            raise ValueError(
+                "affine folding into a zero-padded k>1 conv is not exact "
+                "(padded zeros lack the shift); materialize the BN instead")
+        to_pad = (ks - 1) // 2
+        parts_in = isinstance(x, (list, tuple))
+        xs = list(x) if parts_in else [x]
+        kernel = self.weight
+        y, off = None, 0
+        for p in xs:
+            ci = p.shape[-1]
+            kp = kernel[:, off:off + ci] if parts_in else kernel
+            if in_scale is not None:
+                kp = kp * in_scale[off:off + ci].to(kp.dtype)[None, :, None, None]
+            if isinstance(p, Up2):
+                if ks != 3 or stride != 1:
+                    raise ValueError(f"Up2 parts need a 3x3 stride-1 conv, got {ks}, {stride}")
+                yi = up2_conv3x3(p.x, kp.permute(2, 3, 1, 0), p.mode, self.pad)
+            elif self.pad in ("reflection", "replication") and to_pad > 0:
+                yi = _conv2d(pad2d(p, to_pad, self.pad), kp, stride, 0)
+            else:
+                yi = _conv2d(p, kp, stride, to_pad)
+            y = yi if y is None else y + yi
+            off += ci
+        if in_shift is not None:
+            y = y + (kernel * in_shift.to(kernel.dtype)[None, :, None, None]).sum(
+                (1, 2, 3)).to(y.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+def crop_to_min(tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Centre-crop all NHWC inputs to the smallest common H, W."""
+    th = min(t.shape[1] for t in tensors)
+    tw = min(t.shape[2] for t in tensors)
+    out = []
+    for t in tensors:
+        dh = (t.shape[1] - th) // 2
+        dw = (t.shape[2] - tw) // 2
+        out.append(t[:, dh:dh + th, dw:dw + tw, :])
+    return out
+
+
+def concat_cropped(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat(crop_to_min(tensors), dim=-1)

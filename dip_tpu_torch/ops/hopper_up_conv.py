@@ -1,0 +1,235 @@
+"""The fused up2 -> conv3x3 seam's three Hopper kernels, their plain
+versions, and the autograd.Function that joins them.
+
+Counterpart of dip_tpu/ops/pallas_up_conv.py. The kernels live in
+`csrc/up_conv.cu` (built at first use by ops/_build.py):
+
+  fwd    xp (N,h+2,w+2,C), e (3,3,C,4F)  -> z (N,2h,2w,F), phase -> HR
+         interleave out[2r+p, 2s+q, f] = acc[r, s, (p*2+q)*F + f]
+  dgrad  dzq (N,h,w,4F) bf16, e          -> dxp (N,h+2,w+2,C)
+  wgrad  xp, dzq                         -> de (3,3,C,4F)
+
+Numerics follow the TPU kernels' mixed mode (pallas_up_conv._mx): the
+operands are rounded to bf16, every sum is f32, and results come back in
+xp's dtype. The plain versions below do exactly that in PyTorch (round,
+then compute in f32), so kernel and plain version differ only in the order
+of the f32 sums.
+
+Each wrapper takes its plain version only when every tensor it is given
+lies on the CPU. On CUDA tensors it launches the kernel or raises; any
+other mix of devices raises. Each launch adds one to `LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from dip_tpu_torch.ops import _build
+
+LAUNCHES = {"fwd": 0, "dgrad": 0, "wgrad": 0}
+_BF16 = torch.bfloat16
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _mx(a: torch.Tensor) -> torch.Tensor:
+    """Tensor-core operand precision, as f32 for the plain versions."""
+    return a.to(_BF16).to(torch.float32)
+
+
+# -- plain versions -------------------------------------------------------------
+
+
+def fwd_plain(xp: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    n, hp, wp, _ = xp.shape
+    h, w = hp - 2, wp - 2
+    f4 = e.shape[-1]
+    x, ee = _mx(xp), _mx(e)
+    acc = torch.zeros((n, h, w, f4), dtype=torch.float32, device=xp.device)
+    for d in range(3):
+        for g in range(3):
+            acc += x[:, d:d + h, g:g + w] @ ee[d, g]
+    z = acc.to(xp.dtype).reshape(n, h, w, 2, 2, f4 // 4)
+    return z.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, f4 // 4)
+
+
+def dgrad_plain(dzq: torch.Tensor, e: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    n, h, w, _ = dzq.shape
+    c = e.shape[2]
+    dzp = F.pad(_mx(dzq), (0, 0, 2, 2, 2, 2))  # dacc is zero outside 0..h-1
+    ee = _mx(e)
+    acc = torch.zeros((n, h + 2, w + 2, c), dtype=torch.float32,
+                      device=dzq.device)
+    for d in range(3):
+        for g in range(3):
+            acc += dzp[:, 2 - d:4 - d + h, 2 - g:4 - g + w] @ ee[d, g].T
+    return acc.to(out_dtype)
+
+
+def wgrad_plain(xp: torch.Tensor, dzq: torch.Tensor) -> torch.Tensor:
+    _, hp, wp, c = xp.shape
+    h, w = hp - 2, wp - 2
+    x, dz = _mx(xp), _mx(dzq)
+    de = torch.stack([
+        torch.einsum("nijc,nijk->ck", x[:, d:d + h, g:g + w], dz)
+        for d in range(3) for g in range(3)])
+    return de.reshape(3, 3, c, dz.shape[-1]).to(xp.dtype)
+
+
+# -- kernel wrappers ------------------------------------------------------------
+
+
+def _on_cpu(**tensors: torch.Tensor) -> bool:
+    """True if every tensor is on the CPU, False if all are on one CUDA
+    device; raises on anything else."""
+    devs = {t.device for t in tensors.values()}
+    if devs == {torch.device("cpu")}:
+        return True
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"seam kernels need all tensors on one CUDA device "
+                         f"(or all on the CPU): { {k: str(t.device) for k, t in tensors.items()} }")
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return False
+
+
+def _check_dtype(name: str, t: torch.Tensor, allowed) -> None:
+    if t.dtype not in allowed:
+        raise TypeError(f"{name} has dtype {t.dtype}; expected one of {allowed}")
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _seam_dims(xp: torch.Tensor, e: torch.Tensor) -> tuple[int, ...]:
+    if xp.dim() != 4 or e.dim() != 4 or e.shape[:2] != (3, 3):
+        raise ValueError(f"xp (N,h+2,w+2,C) and e (3,3,C,4F) expected, got "
+                         f"{tuple(xp.shape)} and {tuple(e.shape)}")
+    n, hp, wp, c = xp.shape
+    if e.shape[2] != c or e.shape[3] % 4 or hp < 4 or wp < 4:
+        raise ValueError(f"bad seam shapes xp {tuple(xp.shape)}, e {tuple(e.shape)}")
+    return n, hp - 2, wp - 2, c, e.shape[3] // 4
+
+
+def fwd(xp: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Forward seam: xp (N,h+2,w+2,C), e (3,3,C,4F) -> (N,2h,2w,F)."""
+    n, h, w, c, f = _seam_dims(xp, e)
+    _check_dtype("xp", xp, _FLOATS)
+    _check_dtype("e", e, _FLOATS)
+    if _on_cpu(xp=xp, e=e):
+        return fwd_plain(xp, e)
+    eb = e.to(_BF16)  # operands are bf16 in both modes (as _fwd's _mx(e))
+    out = torch.empty((n, 2 * h, 2 * w, f), dtype=xp.dtype, device=xp.device)
+    rc = _build.load().dip_up_conv_fwd(
+        xp.data_ptr(), eb.data_ptr(), out.data_ptr(), n, h, w, c, f,
+        int(xp.dtype == torch.float32), _stream())
+    _raise_on(rc, "seam fwd")
+    LAUNCHES["fwd"] += 1
+    return out
+
+
+def dgrad(dzq: torch.Tensor, e: torch.Tensor,
+          out_dtype: torch.dtype) -> torch.Tensor:
+    """Data gradient: phase-major dzq (N,h,w,4F) bf16 -> dxp (N,h+2,w+2,C)."""
+    if (dzq.dim() != 4 or e.dim() != 4 or e.shape[:2] != (3, 3)
+            or dzq.shape[3] != e.shape[3] or dzq.shape[3] % 4):
+        raise ValueError(f"bad dgrad shapes dzq {tuple(dzq.shape)}, e {tuple(e.shape)}")
+    n, h, w, f4 = dzq.shape
+    c = e.shape[2]
+    _check_dtype("dzq", dzq, (_BF16,))
+    _check_dtype("e", e, _FLOATS)
+    if out_dtype not in _FLOATS:
+        raise TypeError(f"out_dtype {out_dtype} not supported")
+    if _on_cpu(dzq=dzq, e=e):
+        return dgrad_plain(dzq, e, out_dtype)
+    eb = e.to(_BF16)
+    dxp = torch.empty((n, h + 2, w + 2, c), dtype=out_dtype, device=dzq.device)
+    rc = _build.load().dip_up_conv_dgrad(
+        dzq.data_ptr(), eb.data_ptr(), dxp.data_ptr(), n, h, w, c, f4 // 4,
+        int(out_dtype == torch.float32), _stream())
+    _raise_on(rc, "seam dgrad")
+    LAUNCHES["dgrad"] += 1
+    return dxp
+
+
+def _wgrad_splits(pixels: int) -> int:
+    """How many slices the N*h*w reduction is cut into: enough blocks to
+    fill the card at the large seams, one slice at the small ones."""
+    return max(1, min(16, pixels // 256))
+
+
+def wgrad(xp: torch.Tensor, dzq: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of e: xp, phase-major dzq -> de (3,3,C,4F) in xp's dtype."""
+    if xp.dim() != 4 or dzq.dim() != 4 or dzq.shape[:3] != (
+            xp.shape[0], xp.shape[1] - 2, xp.shape[2] - 2) or dzq.shape[3] % 4:
+        raise ValueError(f"bad wgrad shapes xp {tuple(xp.shape)}, dzq {tuple(dzq.shape)}")
+    n, hp, wp, c = xp.shape
+    h, w, f4 = hp - 2, wp - 2, dzq.shape[3]
+    _check_dtype("xp", xp, _FLOATS)
+    _check_dtype("dzq", dzq, (_BF16,))
+    if _on_cpu(xp=xp, dzq=dzq):
+        return wgrad_plain(xp, dzq)
+    lib = _build.load()
+    wc, wk, wpix = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.dip_up_conv_wgrad_tiles(ctypes.byref(wc), ctypes.byref(wk), ctypes.byref(wpix))
+    pixels = n * h * w
+    splits = _wgrad_splits(pixels)
+    per = -(-pixels // splits)
+    per = -(-per // wpix.value) * wpix.value
+    splits = -(-pixels // per)
+    c_pad = -(-c // wc.value) * wc.value
+    k_pad = -(-f4 // wk.value) * wk.value
+    ws = torch.empty((splits, 9, c_pad, k_pad), dtype=torch.float32, device=xp.device)
+    de = torch.empty((3, 3, c, f4), dtype=xp.dtype, device=xp.device)
+    rc = lib.dip_up_conv_wgrad(
+        xp.data_ptr(), dzq.data_ptr(), ws.data_ptr(), de.data_ptr(), n, h, w, c,
+        f4 // 4, splits, per, int(xp.dtype == torch.float32), _stream())
+    _raise_on(rc, "seam wgrad")
+    LAUNCHES["wgrad"] += 1
+    return de
+
+
+# -- autograd -------------------------------------------------------------------
+
+
+def phase_major(dz: torch.Tensor) -> torch.Tensor:
+    """HR cotangent (N,2h,2w,F) -> phase-major bf16 (N,h,w,4F), column
+    (p*2+q)*F+f (pallas_up_conv._vjp_bwd's 'xla' transform)."""
+    n, hh, ww, f = dz.shape
+    dzq = dz.to(_BF16).reshape(n, hh // 2, 2, ww // 2, 2, f)
+    return dzq.permute(0, 1, 3, 2, 4, 5).reshape(n, hh // 2, ww // 2, 4 * f).contiguous()
+
+
+class UpConv3x3(torch.autograd.Function):
+    """Seam on the edge-padded LR input: xp (N,h+2,w+2,C), e (3,3,C,4F) ->
+    interleaved HR (N,2h,2w,F); backward runs dgrad and wgrad."""
+
+    @staticmethod
+    def forward(ctx, xp: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(xp, e)
+        return fwd(xp, e)
+
+    @staticmethod
+    def backward(ctx, dz: torch.Tensor):
+        xp, e = ctx.saved_tensors
+        dzq = phase_major(dz)
+        return dgrad(dzq, e, xp.dtype), wgrad(xp, dzq).to(e.dtype)
+
+
+def up2_conv3x3_hopper(xp: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    return UpConv3x3.apply(xp, e)

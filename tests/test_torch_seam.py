@@ -1,0 +1,137 @@
+"""The seam kernels' plain versions (dip_tpu_torch/ops/hopper_up_conv.py)
+against the JAX Pallas kernels (dip_tpu/ops/pallas_up_conv.py), which run
+in interpret mode on the CPU, at C = F = 128.
+
+Both sides round the same operands to bf16 and sum in f32, so in f32 mode
+they differ only in the order of the f32 sums: max-normalised error 1e-4.
+In bf16 mode each result is also rounded to bf16, and two f32 sums that
+differ in the last bits can round to neighbouring bf16 values: 1e-2.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from dip_tpu_torch.ops import hopper_up_conv as H  # noqa: E402
+
+TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+C = F = 128
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """jax and the Pallas seam module, imported here and not at the top so
+    that the CUDA test below also runs on a machine without JAX."""
+    jax = pytest.importorskip("jax")
+    from dip_tpu.ops import pallas_up_conv
+
+    return jax, pallas_up_conv
+
+
+def _rel(a, b) -> float:
+    a = np.asarray(a, dtype=np.float32)
+    b = np.asarray(b, dtype=np.float32)
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-30))
+
+
+def _inputs(h, w, dtype, seed):
+    """xp, e, HR cotangent dz as numpy f32 values exactly representable in
+    `dtype`, so both packages see identical inputs."""
+    rng = np.random.default_rng(seed)
+    t = getattr(torch, dtype)
+
+    def snap(a):
+        return torch.from_numpy(a.astype(np.float32)).to(t).float().numpy()
+
+    xp = snap(rng.normal(size=(1, h + 2, w + 2, C)))
+    e = snap(rng.normal(size=(3, 3, C, 4 * F)) * 0.1)
+    dz = snap(rng.normal(size=(1, 2 * h, 2 * w, F)))
+    return xp, e, dz
+
+
+def _jnp(jax, a, dtype):
+    return jax.numpy.asarray(a, dtype=getattr(jax.numpy, dtype))
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw", [(8, 8), (16, 12)])
+def test_plain_versions_match_pallas_kernels(jx, hw, dtype):
+    jax, P = jx
+    h, w = hw
+    xp, e, dz = _inputs(h, w, dtype, seed=h * 31 + w)
+    xp_j, e_j = _jnp(jax, xp, dtype), _jnp(jax, e, dtype)
+    dzq_j = dz.reshape(1, h, 2, w, 2, F).transpose(0, 1, 3, 2, 4, 5).reshape(1, h, w, 4 * F)
+    dzq_j = _jnp(jax, dzq_j, "bfloat16")
+    want_z = jax.jit(P._fwd)(xp_j, e_j)
+    want_dxp = jax.jit(P._dgrad, static_argnums=(2, 3))(dzq_j, e_j, xp_j.shape, xp_j.dtype)
+    want_de = jax.jit(P._wgrad)(xp_j, dzq_j)
+
+    xp_t, e_t = _torch(xp, dtype), _torch(e, dtype)
+    dzq_t = H.phase_major(_torch(dz, dtype))
+    np.testing.assert_array_equal(dzq_t.float().numpy(),
+                                  np.asarray(dzq_j, dtype=np.float32))
+    got_z = H.fwd_plain(xp_t, e_t)
+    got_dxp = H.dgrad_plain(dzq_t, e_t, xp_t.dtype)
+    got_de = H.wgrad_plain(xp_t, dzq_t)
+    for name, got, want in (("fwd", got_z, want_z), ("dgrad", got_dxp, want_dxp),
+                            ("wgrad", got_de, want_de)):
+        assert tuple(got.shape) == want.shape, name
+        assert str(got.dtype) == f"torch.{want.dtype}", name
+        rel = _rel(got.float().numpy(), np.asarray(want, dtype=np.float32))
+        assert rel < TOL[dtype], (name, rel)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_function_matches_pallas_vjp(jx, dtype):
+    """UpConv3x3 (forward kernel, then dz permute + dgrad + wgrad) vs
+    jax.vjp of up2_conv3x3_pallas, on CPU tensors (plain versions)."""
+    jax, P = jx
+    h, w = 8, 8
+    xp, e, dz = _inputs(h, w, dtype, seed=5)
+    z_j, vjp = jax.vjp(P.up2_conv3x3_pallas, _jnp(jax, xp, dtype), _jnp(jax, e, dtype))
+    dxp_j, de_j = vjp(_jnp(jax, dz, dtype))
+
+    xp_t = _torch(xp, dtype).requires_grad_()
+    e_t = _torch(e, dtype).requires_grad_()
+    z_t = H.up2_conv3x3_hopper(xp_t, e_t)
+    dxp_t, de_t = torch.autograd.grad(z_t, (xp_t, e_t), _torch(dz, dtype))
+    for name, got, want in (("z", z_t, z_j), ("dxp", dxp_t, dxp_j), ("de", de_t, de_j)):
+        assert tuple(got.shape) == want.shape, name
+        assert str(got.dtype) == f"torch.{want.dtype}", name
+        rel = _rel(got.detach().float().numpy(), np.asarray(want, dtype=np.float32))
+        assert rel < TOL[dtype], (name, rel)
+
+
+def test_wrappers_take_plain_versions_on_cpu_only():
+    """On CPU tensors the wrappers return the plain result and count no
+    launch; a mix of devices or a wrong dtype raises."""
+    xp, e, dz = _inputs(4, 4, "float32", seed=1)
+    xp_t, e_t = torch.from_numpy(xp), torch.from_numpy(e)
+    H.reset_launches()
+    torch.testing.assert_close(H.fwd(xp_t, e_t), H.fwd_plain(xp_t, e_t), rtol=0, atol=0)
+    assert H.LAUNCHES == {"fwd": 0, "dgrad": 0, "wgrad": 0}
+    with pytest.raises(TypeError):
+        H.fwd(xp_t.double(), e_t)
+    with pytest.raises(TypeError):
+        H.dgrad(H.phase_major(torch.from_numpy(dz)).float(), e_t, torch.float32)
+    with pytest.raises(ValueError):
+        H.fwd(xp_t, e_t[:, :, :5])
+    with pytest.raises(ValueError):
+        H.fwd(xp_t, e_t.to("meta"))
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_card():
+    """The check chip_smoke.py runs in its kernel-parity phase."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run python3 chip_smoke.py on the card)")
+    from chip_smoke import phase_kernel_parity
+
+    stats = phase_kernel_parity(torch.device("cuda", 0))
+    assert set(stats) == {"fwd", "dgrad", "wgrad"}
