@@ -4,7 +4,7 @@
 // dip_tpu_torch/ops/hopper_up_conv.py, which also holds their plain
 // PyTorch versions:
 //
-//   fwd    xp (N,h+2,w+2,C) , e (3,3,C,4F)  -> z   (N,2h,2w,F)
+//   fwd    xp (N,h+2,w+2,C) , e (3,3,C,4F)  -> z   (N,2h,2w,F)  [+ carry]
 //   dgrad  dzq (N,h,w,4F)   , e (3,3,C,4F)  -> dxp (N,h+2,w+2,C)
 //   wgrad  xp (N,h+2,w+2,C) , dzq (N,h,w,4F) -> de (3,3,C,4F)
 //
@@ -64,6 +64,13 @@ __device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16(v); }
 __device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+// v rounded to the type of the (unused) pointer, back in f32
+__device__ __forceinline__ float rounded(float v, const float*) { return v; }
+__device__ __forceinline__ float rounded(float v, const bf16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 
 // Stage src[0..valid) as 8 bf16 at dst (16-byte aligned shared memory),
 // zero-filling past `valid`; one 16-byte load when all 8 are valid and src
@@ -98,10 +105,16 @@ __device__ __forceinline__ void stage8(const float* src, int valid, bf16* dst) {
 // the epilogue writes out[2r+p, 2s+q, f] straight from shared memory, and
 // the halo comes from xp's own two pad rows and columns, masked at the
 // ragged edge, so any N, h, w, C and F are accepted.
-template <typename T>
+// kCarry (K1c, the carry-in of up2_conv3x3_pallas_carry, :444-463): the
+// epilogue adds carry[out index] to the result rounded to T, in T, as the
+// TPU kernel's `z + carry` in the output dtype (:183-187); the decoder's
+// skip-branch result then needs no separate full-resolution add. A template
+// parameter, so the plain forward's code is unchanged.
+template <typename T, bool kCarry>
 __global__ void __launch_bounds__(TAP_THREADS)
 up_conv_fwd_kernel(const T* __restrict__ xp, const bf16* __restrict__ e,
-                   T* __restrict__ out, int h, int w, int c, int f, int tiles_w) {
+                   const T* __restrict__ carry, T* __restrict__ out, int h, int w, int c,
+                   int f, int tiles_w) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);  // [HALO][KC]
   bf16* es = xs + HALO * KC;                  // [9][KC][NT]
@@ -156,15 +169,17 @@ up_conv_fwd_kernel(const T* __restrict__ xp, const bf16* __restrict__ e,
   __syncwarp();
   const int r = r0 + warp;
   if (r >= h) return;
-  T* ob = out + (size_t)b * (2 * h) * (2 * w) * f;
+  const size_t img = (size_t)b * (2 * h) * (2 * w) * f;
   for (int i = lane; i < 16 * NT; i += 32) {
     const int px = i / NT, nn = i % NT;
     const int s = s0 + px, col = n0 + nn;
     if (s >= w || col >= f4) continue;
     const int pq = col / f, ff = col % f;
     const int p = pq >> 1, q = pq & 1;
-    store_as(ob + ((size_t)(2 * r + p) * (2 * w) + 2 * s + q) * f + ff,
-             epi[px * EPI_LD + nn]);
+    const size_t o = img + ((size_t)(2 * r + p) * (2 * w) + 2 * s + q) * f + ff;
+    float v = epi[px * EPI_LD + nn];
+    if (kCarry) v = rounded(v, carry) + to_f32(carry[o]);
+    store_as(out + o, v);
   }
 }
 
@@ -341,17 +356,18 @@ __global__ void up_conv_wgrad_reduce_kernel(const float* __restrict__ ws, T* __r
   store_as(de + idx, s);
 }
 
-template <typename T>
-int launch_fwd(const void* xp, const void* e, void* out, int n, int h, int w, int c,
-               int f, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      up_conv_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTapSmem);
+template <typename T, bool kCarry>
+int launch_fwd(const void* xp, const void* e, const void* carry, void* out, int n, int h,
+               int w, int c, int f, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(up_conv_fwd_kernel<T, kCarry>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kTapSmem);
   if (err != cudaSuccess) return (int)err;
   const int tiles_w = (w + TW - 1) / TW, tiles_h = (h + TH - 1) / TH;
   dim3 grid(tiles_w * tiles_h, (4 * f + NT - 1) / NT, n);
-  up_conv_fwd_kernel<T><<<grid, TAP_THREADS, kTapSmem, st>>>(
-      static_cast<const T*>(xp), static_cast<const bf16*>(e), static_cast<T*>(out), h, w,
-      c, f, tiles_w);
+  up_conv_fwd_kernel<T, kCarry><<<grid, TAP_THREADS, kTapSmem, st>>>(
+      static_cast<const T*>(xp), static_cast<const bf16*>(e), static_cast<const T*>(carry),
+      static_cast<T*>(out), h, w, c, f, tiles_w);
   return (int)cudaGetLastError();
 }
 
@@ -395,11 +411,16 @@ int launch_wgrad(const void* xp, const void* dz, void* ws, void* de, int n, int 
 // float (else bf16) for xp and for the output of fwd, dgrad and wgrad; e and
 // dzq are always bf16.
 
-extern "C" int dip_up_conv_fwd(const void* xp, const void* e, void* out, int n, int h,
-                               int w, int c, int f, int x_is_f32, void* stream) {
+// `carry` is null, or (N,2h,2w,F) in xp's dtype, added to the output.
+extern "C" int dip_up_conv_fwd(const void* xp, const void* e, const void* carry, void* out,
+                               int n, int h, int w, int c, int f, int x_is_f32,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return x_is_f32 ? launch_fwd<float>(xp, e, out, n, h, w, c, f, st)
-                  : launch_fwd<bf16>(xp, e, out, n, h, w, c, f, st);
+  if (carry != nullptr)
+    return x_is_f32 ? launch_fwd<float, true>(xp, e, carry, out, n, h, w, c, f, st)
+                    : launch_fwd<bf16, true>(xp, e, carry, out, n, h, w, c, f, st);
+  return x_is_f32 ? launch_fwd<float, false>(xp, e, carry, out, n, h, w, c, f, st)
+                  : launch_fwd<bf16, false>(xp, e, carry, out, n, h, w, c, f, st);
 }
 
 extern "C" int dip_up_conv_dgrad(const void* dzq, const void* e, void* dxp, int n, int h,

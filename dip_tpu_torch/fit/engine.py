@@ -15,9 +15,14 @@ Semantics (as the JAX engine):
    snapshot (the params before the last good update) and skip this
    update; otherwise the snapshot becomes the params before this update.
    The optimizer's moments are not restored.
- - compute_dtype='bfloat16': params and z are cast each step (master
-   params stay f32, the output goes back to f32 before the loss); no
-   autocast.
+ - compute_dtype='bfloat16': the net's params and z are cast each step
+   (master params stay f32, the output goes back to f32 before the loss);
+   no autocast. Extra trainable leaves stay f32.
+ - optimize-over: the trainable set is the net's parameters, plus the
+   input z ('input' in opt_over, or opt_input), plus each extra leaf
+   (e.g. 'down', a learnable degradation kernel). All of them go to Adam
+   and to the backtracking snapshot; loss_fn sees them by name. With a
+   trainable z the jitter is drawn around its current value.
 """
 
 from __future__ import annotations
@@ -42,15 +47,18 @@ class FitConfig:
     backtrack_threshold: float = 5.0
     log_every: int = 100              # steps between host syncs
     compute_dtype: str | None = None  # 'bfloat16' for mixed precision
+    opt_input: bool = False           # optimise z as well
+    opt_over: str = "net"             # 'net,input,down'; 'input' sets opt_input
 
 
 @dataclasses.dataclass
 class FitState:
     """Mutable fit state; Engine.step updates it in place."""
 
-    params: dict[str, torch.Tensor]    # the model's f32 master parameters
+    params: dict[str, torch.Tensor]    # trainable f32 leaves: the model's
+                                       # parameters by name, 'input', extras
     opt: torch.optim.Optimizer
-    z: torch.Tensor                    # saved base input
+    z: torch.Tensor                    # saved base input (the initial z)
     ema_out: torch.Tensor | None       # None until the first step
     generator: torch.Generator         # input jitter, on the fit's device
     snapshot: dict[str, torch.Tensor]  # params for backtracking ({} if off)
@@ -91,7 +99,8 @@ class Engine:
     Args:
         model: an nn.Module mapping z (1,H,W,Cin) -> image (1,H,W,Cout),
             moved to `device` here.
-        loss_fn: (params, out, aux) -> 0-d loss tensor.
+        loss_fn: (params, out, aux) -> 0-d loss tensor; params holds every
+            trainable leaf by name (extra leaves as given to init_state).
         cfg: FitConfig.
         metrics_fn: optional (out, ema_out, aux) -> dict of 0-d tensors; with
             backtracking it must give 'psnr_track' (PSNR vs the fit target).
@@ -104,35 +113,52 @@ class Engine:
             raise ValueError(f"optimizer {cfg.optimizer!r} is not ported yet; only 'adam'")
         if cfg.compute_dtype not in (None, "bfloat16"):
             raise ValueError(f"unsupported compute_dtype {cfg.compute_dtype!r}")
+        if "input" in cfg.opt_over.split(",") and not cfg.opt_input:
+            cfg = dataclasses.replace(cfg, opt_input=True)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.net_keys = tuple(k for k, _ in self.model.named_parameters())
         self.loss_fn = loss_fn
         self.cfg = cfg
         self.metrics_fn = metrics_fn
         self.tf32 = disable_tf32()
 
-    def init_state(self, seed: int, z: torch.Tensor) -> FitState:
+    def init_state(self, seed: int, z: torch.Tensor,
+                   extra_params: dict[str, torch.Tensor] | None = None) -> FitState:
         """Initialise the weights from `seed` (on a CPU generator, so every
-        device gets the same weights), the optimizer and the jitter stream."""
+        device gets the same weights), the trainable set, the optimizer and
+        the jitter stream. `extra_params` are further trainable leaves, by
+        name, with their initial values."""
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         params = dict(self.model.named_parameters())
+        z = z.to(self.device)
+        leaves = dict(extra_params or {})
+        if self.cfg.opt_input:
+            leaves["input"] = z
+        for k, v in leaves.items():
+            if k in params:
+                raise ValueError(f"trainable leaf {k!r} clashes with a parameter name")
+            params[k] = v.detach().to(self.device, torch.float32).clone().requires_grad_()
         opt = torch.optim.Adam(params.values(), lr=self.cfg.lr)
         jitter = torch.Generator(device=self.device).manual_seed(seed + 1)
         snapshot = ({k: p.detach().clone() for k, p in params.items()}
                     if self.cfg.backtrack else {})
-        return FitState(params=params, opt=opt, z=z.to(self.device), ema_out=None,
+        return FitState(params=params, opt=opt, z=z, ema_out=None,
                         generator=jitter, snapshot=snapshot,
                         last_track=torch.zeros((), device=self.device), step=0)
 
     def _forward(self, params: dict[str, torch.Tensor], z: torch.Tensor) -> torch.Tensor:
         if self.cfg.compute_dtype is None:
             return self.model(z)
-        cast = {k: v.to(torch.bfloat16) for k, v in params.items()}
+        cast = {k: params[k].to(torch.bfloat16) for k in self.net_keys}
         return functional_call(self.model, cast, (z.to(torch.bfloat16),)).to(torch.float32)
+
+    def _base_input(self, state: FitState) -> torch.Tensor:
+        return state.params["input"] if self.cfg.opt_input else state.z
 
     def step(self, state: FitState, aux: Any) -> tuple[FitState, dict]:
         cfg = self.cfg
-        z_used = state.z
+        z_used = self._base_input(state)
         if cfg.reg_noise_std > 0:
             z_used = z_used + cfg.reg_noise_std * torch.randn(
                 state.z.shape, generator=state.generator, device=self.device,
@@ -141,11 +167,13 @@ class Engine:
         loss = self.loss_fn(state.params, out, aux)
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
+        # the output as computed: with a trainable z, an identity net's
+        # output is the leaf itself, which the update changes in place
+        out = out.detach().clone() if cfg.opt_input else out.detach()
         if cfg.backtrack:
             pre = {k: p.detach().clone() for k, p in state.params.items()}
         state.opt.step()
 
-        out = out.detach()
         if cfg.exp_weight is None or state.step == 0:
             ema = out
         else:
@@ -189,9 +217,11 @@ class Engine:
         return state, history
 
     def render(self, state: FitState) -> torch.Tensor:
-        """Final forward pass with the saved (un-jittered) input."""
+        """Final forward pass with the un-jittered input (the trainable z
+        when z is optimised), copied so that an identity net's render is
+        no view of a trainable leaf."""
         with torch.no_grad():
-            return self._forward(state.params, state.z)
+            return self._forward(state.params, self._base_input(state).clone())
 
 
 def default_metrics(target: torch.Tensor, gt: torch.Tensor | None = None):

@@ -133,7 +133,8 @@ class Conv(nn.Module):
     from TrainBatchNorm(as_affine=True)) into the conv:
     conv(x*s + t, W) == conv(x, W*s) + sum_hwi W[:, i, h, w] * t[i], exact
     for reflection/replication padding and for 1x1 convs. Up2 parts go to
-    the fused seam, up2_conv3x3.
+    the fused seam, up2_conv3x3; with `seam_carry` the parts summed before an
+    Up2 part (the decoder's skip-branch conv) enter the seam as its carry-in.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
@@ -154,7 +155,8 @@ class Conv(nn.Module):
         torch_conv_init_(self.weight, self.bias, generator)
 
     def forward(self, x, in_scale: torch.Tensor | None = None,
-                in_shift: torch.Tensor | None = None) -> torch.Tensor:
+                in_shift: torch.Tensor | None = None,
+                seam_carry: bool = False) -> torch.Tensor:
         ks, stride = self.kernel_size, self.stride
         if in_scale is not None and ks > 1 and self.pad not in (
                 "reflection", "replication"):
@@ -174,6 +176,10 @@ class Conv(nn.Module):
             if isinstance(p, Up2):
                 if ks != 3 or stride != 1:
                     raise ValueError(f"Up2 parts need a 3x3 stride-1 conv, got {ks}, {stride}")
+                if seam_carry and y is not None:
+                    y = up2_conv3x3(p.x, kp.permute(2, 3, 1, 0), p.mode, self.pad, carry=y)
+                    off += ci
+                    continue
                 yi = up2_conv3x3(p.x, kp.permute(2, 3, 1, 0), p.mode, self.pad)
             elif self.pad in ("reflection", "replication") and to_pad > 0:
                 yi = _conv2d(pad2d(p, to_pad, self.pad), kp, stride, 0)

@@ -41,8 +41,10 @@ class Skip(nn.Module):
     fuse_concat keeps (skip, up) as separate parts through the post-concat
     BN and conv; fold_bn folds that BN into the conv; up_conv runs each
     eligible decoder upsample -> 3x3 conv as the fused seam
-    (ops/up_conv.py). All three change no parameter and no result beyond
-    rounding; the seam rounds its operands to bf16.
+    (ops/up_conv.py); seam_carry adds the decoder's skip-branch conv result
+    in the seam kernel's epilogue (the JAX package's dispatch.seam_carry,
+    off by default there too). None of them changes a parameter or a
+    result beyond rounding; the seam rounds its operands to bf16.
     """
 
     def __init__(
@@ -65,6 +67,7 @@ class Skip(nn.Module):
         fuse_concat: bool = True,
         fold_bn: bool = True,
         up_conv: bool = True,
+        seam_carry: bool = False,
     ):
         super().__init__()
         n = len(num_channels_down)
@@ -81,6 +84,7 @@ class Skip(nn.Module):
         self.fuse_concat = fuse_concat
         self.fold_bn = fold_bn
         self.up_conv = up_conv
+        self.seam_carry = seam_carry
         down_modes = _per_scale(downsample_mode, n)
         k_down = _per_scale(filter_size_down, n)
 
@@ -119,7 +123,7 @@ class Skip(nn.Module):
         convs, bns = iter(self.convs), iter(self.bns)
 
         def cba(h):
-            h = next(convs)(h)
+            h = next(convs)(h, seam_carry=self.seam_carry)
             return act(next(bns)(h), self.act_fun)
 
         n = len(self.ch_skip)
@@ -147,7 +151,7 @@ class Skip(nn.Module):
             foldable = self.pad in ("reflection", "replication") or self.k_up[i] == 1
             if self.fold_bn and foldable:
                 u, s, t = next(bns)(u, as_affine=True)
-                u = act(next(bns)(next(convs)(u, s, t)), self.act_fun)
+                u = act(next(bns)(next(convs)(u, s, t, self.seam_carry)), self.act_fun)
             else:
                 u = cba(next(bns)(u))
             if self.need1x1_up:

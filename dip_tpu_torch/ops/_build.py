@@ -70,12 +70,26 @@ def load() -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dip_up_conv_fwd.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
+    lib.dip_up_conv_fwd.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 6 + [ptr]
     lib.dip_up_conv_dgrad.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
     lib.dip_up_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
     lib.dip_up_conv_wgrad_tiles.argtypes = [ctypes.POINTER(i32)] * 3
-    for fn in (lib.dip_up_conv_fwd, lib.dip_up_conv_dgrad,
-               lib.dip_up_conv_wgrad, lib.dip_up_conv_wgrad_tiles):
+    lib.dip_downsample.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [ptr]
+    for fn in (lib.dip_up_conv_fwd, lib.dip_up_conv_dgrad, lib.dip_up_conv_wgrad,
+               lib.dip_up_conv_wgrad_tiles, lib.dip_downsample):
         fn.restype = i32
     _lib = lib
     return lib
+
+
+def stream() -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream, for a launch."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def raise_on(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")

@@ -5,7 +5,8 @@ Counterpart of dip_tpu/ops/pallas_up_conv.py. The kernels live in
 `csrc/up_conv.cu` (built at first use by ops/_build.py):
 
   fwd    xp (N,h+2,w+2,C), e (3,3,C,4F)  -> z (N,2h,2w,F), phase -> HR
-         interleave out[2r+p, 2s+q, f] = acc[r, s, (p*2+q)*F + f]
+         interleave out[2r+p, 2s+q, f] = acc[r, s, (p*2+q)*F + f], plus an
+         optional carry-in (N,2h,2w,F) added in the epilogue in z's dtype
   dgrad  dzq (N,h,w,4F) bf16, e          -> dxp (N,h+2,w+2,C)
   wgrad  xp, dzq                         -> de (3,3,C,4F)
 
@@ -17,7 +18,8 @@ of the f32 sums.
 
 Each wrapper takes its plain version only when every tensor it is given
 lies on the CPU. On CUDA tensors it launches the kernel or raises; any
-other mix of devices raises. Each launch adds one to `LAUNCHES`.
+other mix of devices raises. Each launch adds one to `LAUNCHES`; a
+forward with a carry counts as "fwd_carry".
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 
 from dip_tpu_torch.ops import _build
 
-LAUNCHES = {"fwd": 0, "dgrad": 0, "wgrad": 0}
+LAUNCHES = {"fwd": 0, "fwd_carry": 0, "dgrad": 0, "wgrad": 0}
 _BF16 = torch.bfloat16
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -47,7 +49,8 @@ def _mx(a: torch.Tensor) -> torch.Tensor:
 # -- plain versions -------------------------------------------------------------
 
 
-def fwd_plain(xp: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+def fwd_plain(xp: torch.Tensor, e: torch.Tensor,
+              carry: torch.Tensor | None = None) -> torch.Tensor:
     n, hp, wp, _ = xp.shape
     h, w = hp - 2, wp - 2
     f4 = e.shape[-1]
@@ -57,7 +60,8 @@ def fwd_plain(xp: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
         for g in range(3):
             acc += x[:, d:d + h, g:g + w] @ ee[d, g]
     z = acc.to(xp.dtype).reshape(n, h, w, 2, 2, f4 // 4)
-    return z.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, f4 // 4)
+    z = z.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, f4 // 4)
+    return z if carry is None else z + carry
 
 
 def dgrad_plain(dzq: torch.Tensor, e: torch.Tensor,
@@ -107,15 +111,6 @@ def _check_dtype(name: str, t: torch.Tensor, allowed) -> None:
         raise TypeError(f"{name} has dtype {t.dtype}; expected one of {allowed}")
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
-
-
 def _seam_dims(xp: torch.Tensor, e: torch.Tensor) -> tuple[int, ...]:
     if xp.dim() != 4 or e.dim() != 4 or e.shape[:2] != (3, 3):
         raise ValueError(f"xp (N,h+2,w+2,C) and e (3,3,C,4F) expected, got "
@@ -126,20 +121,28 @@ def _seam_dims(xp: torch.Tensor, e: torch.Tensor) -> tuple[int, ...]:
     return n, hp - 2, wp - 2, c, e.shape[3] // 4
 
 
-def fwd(xp: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
-    """Forward seam: xp (N,h+2,w+2,C), e (3,3,C,4F) -> (N,2h,2w,F)."""
+def fwd(xp: torch.Tensor, e: torch.Tensor,
+        carry: torch.Tensor | None = None) -> torch.Tensor:
+    """Forward seam: xp (N,h+2,w+2,C), e (3,3,C,4F) -> (N,2h,2w,F), plus
+    `carry` (N,2h,2w,F) in xp's dtype when given."""
     n, h, w, c, f = _seam_dims(xp, e)
     _check_dtype("xp", xp, _FLOATS)
     _check_dtype("e", e, _FLOATS)
-    if _on_cpu(xp=xp, e=e):
-        return fwd_plain(xp, e)
+    tensors = {"xp": xp, "e": e}
+    if carry is not None:
+        if tuple(carry.shape) != (n, 2 * h, 2 * w, f) or carry.dtype != xp.dtype:
+            raise ValueError(f"carry {tuple(carry.shape)} {carry.dtype} does not match "
+                             f"the output {(n, 2 * h, 2 * w, f)} {xp.dtype}")
+        tensors["carry"] = carry
+    if _on_cpu(**tensors):
+        return fwd_plain(xp, e, carry)
     eb = e.to(_BF16)  # operands are bf16 in both modes (as _fwd's _mx(e))
     out = torch.empty((n, 2 * h, 2 * w, f), dtype=xp.dtype, device=xp.device)
     rc = _build.load().dip_up_conv_fwd(
-        xp.data_ptr(), eb.data_ptr(), out.data_ptr(), n, h, w, c, f,
-        int(xp.dtype == torch.float32), _stream())
-    _raise_on(rc, "seam fwd")
-    LAUNCHES["fwd"] += 1
+        xp.data_ptr(), eb.data_ptr(), None if carry is None else carry.data_ptr(),
+        out.data_ptr(), n, h, w, c, f, int(xp.dtype == torch.float32), _build.stream())
+    _build.raise_on(rc, "seam fwd")
+    LAUNCHES["fwd" if carry is None else "fwd_carry"] += 1
     return out
 
 
@@ -161,8 +164,8 @@ def dgrad(dzq: torch.Tensor, e: torch.Tensor,
     dxp = torch.empty((n, h + 2, w + 2, c), dtype=out_dtype, device=dzq.device)
     rc = _build.load().dip_up_conv_dgrad(
         dzq.data_ptr(), eb.data_ptr(), dxp.data_ptr(), n, h, w, c, f4 // 4,
-        int(out_dtype == torch.float32), _stream())
-    _raise_on(rc, "seam dgrad")
+        int(out_dtype == torch.float32), _build.stream())
+    _build.raise_on(rc, "seam dgrad")
     LAUNCHES["dgrad"] += 1
     return dxp
 
@@ -198,8 +201,8 @@ def wgrad(xp: torch.Tensor, dzq: torch.Tensor) -> torch.Tensor:
     de = torch.empty((3, 3, c, f4), dtype=xp.dtype, device=xp.device)
     rc = lib.dip_up_conv_wgrad(
         xp.data_ptr(), dzq.data_ptr(), ws.data_ptr(), de.data_ptr(), n, h, w, c,
-        f4 // 4, splits, per, int(xp.dtype == torch.float32), _stream())
-    _raise_on(rc, "seam wgrad")
+        f4 // 4, splits, per, int(xp.dtype == torch.float32), _build.stream())
+    _build.raise_on(rc, "seam wgrad")
     LAUNCHES["wgrad"] += 1
     return de
 
@@ -217,19 +220,24 @@ def phase_major(dz: torch.Tensor) -> torch.Tensor:
 
 class UpConv3x3(torch.autograd.Function):
     """Seam on the edge-padded LR input: xp (N,h+2,w+2,C), e (3,3,C,4F) ->
-    interleaved HR (N,2h,2w,F); backward runs dgrad and wgrad."""
+    interleaved HR (N,2h,2w,F), plus the carry-in if one is given;
+    backward runs dgrad and wgrad, and d(carry) = dz."""
 
     @staticmethod
-    def forward(ctx, xp: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, xp: torch.Tensor, e: torch.Tensor,
+                carry: torch.Tensor | None) -> torch.Tensor:
         ctx.save_for_backward(xp, e)
-        return fwd(xp, e)
+        ctx.has_carry = carry is not None
+        return fwd(xp, e, carry)
 
     @staticmethod
     def backward(ctx, dz: torch.Tensor):
         xp, e = ctx.saved_tensors
         dzq = phase_major(dz)
-        return dgrad(dzq, e, xp.dtype), wgrad(xp, dzq).to(e.dtype)
+        return (dgrad(dzq, e, xp.dtype), wgrad(xp, dzq).to(e.dtype),
+                dz if ctx.has_carry else None)
 
 
-def up2_conv3x3_hopper(xp: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
-    return UpConv3x3.apply(xp, e)
+def up2_conv3x3_hopper(xp: torch.Tensor, e: torch.Tensor,
+                       carry: torch.Tensor | None = None) -> torch.Tensor:
+    return UpConv3x3.apply(xp, e, carry)

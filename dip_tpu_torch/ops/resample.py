@@ -1,10 +1,36 @@
-"""Spatial upsampling of NHWC tensors (counterpart of dip_tpu/ops/resample.py's
-`upsample`; the downsamplers come with the super-resolution slice)."""
+"""Spatial resampling of NHWC tensors (counterpart of dip_tpu/ops/resample.py
+and dip_tpu/ops/pallas_resample.py).
+
+`upsample` is the decoder's 2x resize. `downsample` is the anti-aliased
+downsampler, the differentiable degradation operator of super-resolution:
+
+  - kernel construction (`resample_kernel_1d`, `resample_kernel_2d`) is
+    host numpy in float64, as in the JAX package. Every family it supports
+    (lanczos, gauss, box) is separable, so the 2-D kernel is the outer
+    product of one 1-D profile;
+  - `downsample_plain` is the replication pre-pad followed by two banded
+    f32 products, y = S_h . X . S_w^T per channel, where the band matrix
+    S[o, i] = k[i - o*f] is the stride-f correlation with the profile k;
+  - `downsample` is the public, differentiable op. On CPU tensors its
+    forward is `downsample_plain`; on a CUDA tensor it launches the Hopper
+    kernel (ops/hopper_resample.py) or raises. Its backward is PyTorch on
+    both devices, as the JAX package computes this backward with XLA.
+
+The profile taps and the band matrices are built once per configuration,
+length, dtype and device and kept there (ops/consts.py).
+"""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from dip_tpu_torch.ops import hopper_resample
+from dip_tpu_torch.ops.consts import device_const
+from dip_tpu_torch.ops.pad import pad2d
 
 
 def upsample(x: torch.Tensor, scale: int = 2, mode: str = "nearest") -> torch.Tensor:
@@ -18,3 +44,185 @@ def upsample(x: torch.Tensor, scale: int = 2, mode: str = "nearest") -> torch.Te
     else:
         raise ValueError(f"unknown upsample mode {mode!r}")
     return y.permute(0, 2, 3, 1)
+
+
+# -- kernel construction (host numpy) ---------------------------------------------
+
+
+def _resolve_kernel_family(kernel_type: str, factor: int):
+    """Map the named presets to (family, width, support, sigma)."""
+    if kernel_type == "lanczos2":
+        return "lanczos", 4 * factor + 1, 2, None
+    if kernel_type == "lanczos3":
+        return "lanczos", 6 * factor + 1, 3, None
+    if kernel_type == "gauss12":
+        return "gauss", 7, None, 0.5
+    if kernel_type == "gauss1sq2":
+        return "gauss", 9, None, 1.0 / np.sqrt(2)
+    if kernel_type in ("lanczos", "gauss", "box"):
+        return kernel_type, None, None, None
+    raise ValueError(f"unknown kernel type {kernel_type!r}")
+
+
+def resample_kernel_1d(factor: int, kernel_type: str = "lanczos2", phase: float = 0.0,
+                       kernel_width: int | None = None, support: int | None = None,
+                       sigma: float | None = None) -> np.ndarray:
+    """The normalised 1-D resampling profile (float64). Phase 0.5 shrinks
+    the kernel by one tap and samples at half-pixel offsets; box is always
+    half-phased; gauss halves its distances, as the reference does."""
+    if phase not in (0, 0.5):
+        raise ValueError("phase must be 0 or 0.5")
+    family, w, sup, sig = _resolve_kernel_family(kernel_type, factor)
+    kernel_width = kernel_width if w is None else w
+    support = support if sup is None else sup
+    sigma = sigma if sig is None else sig
+    if kernel_width is None:
+        raise ValueError("kernel_width required for generic kernel types")
+
+    size = kernel_width - 1 if (phase == 0.5 and family != "box") else kernel_width
+    i = np.arange(1, size + 1, dtype=np.float64)
+    center = (kernel_width + 1) / 2.0
+    if family == "box":
+        if phase != 0.5:
+            raise ValueError("box filter is always half-phased")
+        k = np.full(size, 1.0 / kernel_width)
+    elif family == "gauss":
+        if not sigma:
+            raise ValueError("sigma not specified")
+        if phase == 0.5:
+            raise ValueError("phase 1/2 for gauss not implemented")
+        d = (i - center) / 2.0
+        k = np.exp(-(d * d) / (2 * sigma * sigma)) / np.sqrt(2.0 * np.pi * sigma * sigma)
+    else:
+        if not support:
+            raise ValueError("support not specified")
+        d = np.abs(i + 0.5 - center) / factor if phase == 0.5 else np.abs(i - center) / factor
+        k = np.ones(size)
+        nz = d != 0
+        dnz = d[nz]
+        k[nz] = (support * np.sin(np.pi * dnz) * np.sin(np.pi * dnz / support)
+                 / (np.pi * np.pi * dnz * dnz))
+    return (k / k.sum()).astype(np.float64)
+
+
+def resample_kernel_2d(factor: int, kernel_type: str = "lanczos2", phase: float = 0.0,
+                       kernel_width: int | None = None, support: int | None = None,
+                       sigma: float | None = None) -> np.ndarray:
+    """Dense 2-D kernel, the outer product of the 1-D profile."""
+    k1 = resample_kernel_1d(factor, kernel_type, phase, kernel_width, support, sigma)
+    return np.outer(k1, k1)
+
+
+def _band_matrix(k: np.ndarray, n_in: int, n_out: int, stride: int) -> np.ndarray:
+    """(n_out, n_in) f32: S[o, o*stride : o*stride + K] = k."""
+    s = np.zeros((n_out, n_in), dtype=np.float32)
+    for o in range(n_out):
+        s[o, o * stride:o * stride + k.shape[0]] = k
+    return s
+
+
+# -- device constants, one per configuration ----------------------------------------
+# `spec` is (factor, kernel_type, phase, kernel_width, support, sigma).
+
+
+@functools.lru_cache(maxsize=None)
+def _profile(spec: tuple) -> np.ndarray:
+    """The f32 taps of a configuration (read-only; do not modify)."""
+    return resample_kernel_1d(*spec).astype(np.float32)
+
+
+def pad_width(ksize: int, factor: int, preserve_size: bool) -> int:
+    """Replication pre-pad: (K-1)/2 for odd K, (K-factor)/2 for even K."""
+    if not preserve_size:
+        return 0
+    return (ksize - 1) // 2 if ksize % 2 == 1 else (ksize - factor) // 2
+
+
+def _band(key: tuple) -> np.ndarray:
+    """Band matrix of `spec` over a padded input length n_in."""
+    spec, n_in = key
+    k = _profile(spec)
+    return _band_matrix(k, n_in, (n_in - k.shape[0]) // spec[0] + 1, spec[0])
+
+
+def _adjoint_band(key: tuple) -> np.ndarray:
+    """S . P for an unpadded length n with pad p: the band matrix times the
+    (n+2p, n) replication matrix P, whose transpose folds the padded
+    gradient's edge rows into rows 0 and n-1."""
+    spec, n, p = key
+    s = _band((spec, n + 2 * p))
+    folded = s[:, p:p + n].copy()
+    folded[:, 0] += s[:, :p].sum(1)
+    folded[:, n - 1] += s[:, p + n:].sum(1)
+    return folded
+
+
+def _spec(factor, kernel_type, phase, kernel_width, support, sigma) -> tuple:
+    return (int(factor), kernel_type, float(phase), kernel_width, support, sigma)
+
+
+def _geometry(shape, spec: tuple, preserve_size: bool) -> tuple[int, int, int]:
+    """(pad, h_out, w_out); raises if the output would be empty."""
+    if len(shape) != 4:
+        raise ValueError(f"NHWC input expected, got shape {tuple(shape)}")
+    ksize, factor = _profile(spec).shape[0], spec[0]
+    p = pad_width(ksize, factor, preserve_size)
+    h_out = (shape[1] + 2 * p - ksize) // factor + 1
+    w_out = (shape[2] + 2 * p - ksize) // factor + 1
+    if h_out < 1 or w_out < 1:
+        raise ValueError(f"downsample of {tuple(shape)} by {factor} with a {ksize}-tap "
+                         f"kernel (pad {p}) is empty")
+    return p, h_out, w_out
+
+
+# -- plain version and the differentiable op ------------------------------------------
+
+
+def downsample_plain(x: torch.Tensor, factor: int, kernel_type: str = "lanczos2",
+                     phase: float = 0.5, preserve_size: bool = False,
+                     kernel_width: int | None = None, support: int | None = None,
+                     sigma: float | None = None) -> torch.Tensor:
+    """K7's plain version: replication pre-pad, then S_h . X . S_w^T as two
+    banded products in x's dtype (full f32 for f32: no TF32)."""
+    spec = _spec(factor, kernel_type, phase, kernel_width, support, sigma)
+    p, _, _ = _geometry(x.shape, spec, preserve_size)
+    xp = pad2d(x, p, "replication")
+    s_h = device_const(_band, (spec, xp.shape[1]), x.dtype, x.device)
+    s_w = device_const(_band, (spec, xp.shape[2]), x.dtype, x.device)
+    y = torch.einsum("oh,nhwc->nowc", s_h, xp)
+    return torch.einsum("pw,nowc->nopc", s_w, y)
+
+
+class _Downsample(torch.autograd.Function):
+    """Forward: the plain version on the CPU, the Hopper kernel on a CUDA
+    tensor. Backward (linear, so independent of x): dX = (S_h P_h)^T . g .
+    (S_w P_w), the adjoint of the banded products with the replication
+    pad's fold built into the cached matrices."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, spec: tuple, preserve_size: bool) -> torch.Tensor:
+        p, h_out, w_out = _geometry(x.shape, spec, preserve_size)
+        ctx.spec, ctx.hw, ctx.p = spec, (x.shape[1], x.shape[2]), p
+        if x.device.type == "cpu":
+            return downsample_plain(x, spec[0], spec[1], spec[2], preserve_size, *spec[3:])
+        taps = device_const(_profile, spec, torch.float32, x.device)
+        return hopper_resample.downsample_fused(x.contiguous(), taps, spec[0], p, h_out, w_out)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (h, w), p = ctx.hw, ctx.p
+        a_h = device_const(_adjoint_band, (ctx.spec, h, p), g.dtype, g.device)
+        a_w = device_const(_adjoint_band, (ctx.spec, w, p), g.dtype, g.device)
+        d = torch.einsum("oh,nowc->nhwc", a_h, g)
+        return torch.einsum("pw,nhpc->nhwc", a_w, d), None, None
+
+
+def downsample(x: torch.Tensor, factor: int, kernel_type: str = "lanczos2",
+               phase: float = 0.5, preserve_size: bool = False,
+               kernel_width: int | None = None, support: int | None = None,
+               sigma: float | None = None) -> torch.Tensor:
+    """Anti-aliased downsample of NHWC `x` by the integer `factor`:
+    optional replication pre-pad, then the stride-`factor` correlation with
+    the normalised separable kernel. Differentiable in x."""
+    spec = _spec(factor, kernel_type, phase, kernel_width, support, sigma)
+    return _Downsample.apply(x, spec, preserve_size)

@@ -19,12 +19,11 @@ unfolded kernel. Everything in this file is plain PyTorch.
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Callable
 
 import numpy as np
 import torch
 
+from dip_tpu_torch.ops.consts import device_const as _const
 from dip_tpu_torch.ops.hopper_up_conv import up2_conv3x3_hopper
 
 
@@ -78,15 +77,6 @@ def _bmat(mode: str) -> np.ndarray:
     if mode == "nearest":
         return _B_NEAREST
     raise ValueError(f"unsupported upsample mode for fusion: {mode!r}")
-
-
-@functools.lru_cache(maxsize=None)
-def _const(make: Callable[..., np.ndarray], arg, dtype: torch.dtype,
-           device: torch.device) -> torch.Tensor:
-    """make(arg) as a tensor on `device`, built once per (arg, dtype,
-    device): a fresh host-to-device copy every step would make the host
-    wait for the device."""
-    return torch.as_tensor(make(arg), dtype=dtype, device=device)
 
 
 def can_fuse_up2(mode: str, ksize: int, stride: int, pad: str, h: int,
@@ -167,10 +157,13 @@ def _add_reflect_corrections(z: torch.Tensor, x: torch.Tensor,
 
 def up2_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
                 up_mode: str = "bilinear",
-                pad_mode: str = "reflection") -> torch.Tensor:
+                pad_mode: str = "reflection",
+                carry: torch.Tensor | None = None) -> torch.Tensor:
     """conv_valid(pad1_{pad_mode}(upsample(x, 2, up_mode)), kernel), fused.
 
     x: (N, h, w, C), kernel: HWIO (3, 3, C, F) -> (N, 2h, 2w, F). No bias.
+    `carry` (the output's shape, x's dtype) is added in the forward
+    kernel's epilogue; the reflection corrections come after it.
     """
     n, h, w, c = x.shape
     kh, kw, c2, f = kernel.shape
@@ -181,7 +174,7 @@ def up2_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
     e = e.reshape(3, 3, c, 4 * f).contiguous()
     xp = torch.cat([x[:, :1], x, x[:, -1:]], dim=1)
     xp = torch.cat([xp[:, :, :1], xp, xp[:, :, -1:]], dim=2)
-    z = up2_conv3x3_hopper(xp, e)
+    z = up2_conv3x3_hopper(xp, e, None if carry is None else carry.contiguous())
     if up_mode == "bilinear" and pad_mode in ("reflection", "reflect"):
         z = _add_reflect_corrections(z, x, kernel)
     return z

@@ -28,6 +28,7 @@ class TaskSpec:
     input_method: str = "noise"
     input_var: float = 0.1
     spatial_size: tuple[int, int] | None = None
+    extra_params: dict[str, torch.Tensor] | None = None  # e.g. {'down': K x K}
 
 
 def to_device(aux: Any, device: torch.device) -> Any:
@@ -53,6 +54,6 @@ def run_task(spec: TaskSpec, seed: int, *, device: torch.device | str, callback=
     eng = Engine(spec.model, spec.loss_fn, spec.cfg, spec.metrics_fn, device=device)
     z = make_input(spec, torch.Generator().manual_seed(seed), eng.device)
     aux = to_device(spec.aux, eng.device)
-    state = eng.init_state(seed + 1, z)
+    state = eng.init_state(seed + 1, z, spec.extra_params)
     state, history = eng.run(state, aux, callback)
     return eng.render(state), state, history

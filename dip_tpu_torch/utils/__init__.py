@@ -1,1 +1,1 @@
-"""Helpers: the network input."""
+"""Helpers: the network input and image I/O."""

@@ -77,3 +77,30 @@ def test_unknown_keys_raise():
         interop.flax_to_state_dict({"Dense_0": {}})
     with pytest.raises(KeyError):
         interop.state_dict_to_flax({"head.weight": torch.zeros(1)})
+
+
+def test_trainable_set_round_trip(flagship_params):
+    """The JAX engine's trainable set {'net', 'input', 'down': {'kernel'}}
+    -> the port's flat set -> back, exactly; the flat set has the keys of
+    the port's Engine state with opt_over='net,input,down'."""
+    from dip_tpu_torch.fit.engine import Engine, FitConfig
+
+    rng = np.random.default_rng(0)
+    z = rng.random((1, 64, 64, 32)).astype(np.float32)
+    kernel = rng.random((16, 16)).astype(np.float32)
+    trainable = {"net": flagship_params, "input": z, "down": {"kernel": kernel}}
+    flat = interop.flax_trainable_to_torch(trainable)
+    back = interop.torch_trainable_to_flax(flat)
+    flat_a = jax.tree_util.tree_flatten_with_path(trainable)[0]
+    flat_b = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert len(flat_a) == len(flat_b)
+    for path, leaf in flat_a:
+        np.testing.assert_array_equal(flat_b[path], leaf, err_msg=str(path))
+
+    eng = Engine(Skip(num_input_channels=32, **FLAGSHIP), lambda p, out, aux: out.mean(),
+                 FitConfig(opt_over="net,input,down"), device="cpu")
+    state = eng.init_state(0, torch.from_numpy(z), {"down": torch.from_numpy(kernel)})
+    assert eng.cfg.opt_input and set(state.params) == set(flat)
+    assert interop.flax_trainable_to_torch({"net": {}, "input": z}).keys() == {"input"}
+    with pytest.raises(KeyError):
+        interop.flax_trainable_to_torch({"net": {}, "noise": z})

@@ -88,6 +88,43 @@ def test_plain_versions_match_pallas_kernels(jx, hw, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw", [(8, 8), (16, 12)])
+def test_carry_plain_version_matches_pallas_kernel(jx, hw, dtype):
+    """fwd_plain(xp, e, carry) against the Pallas forward with its carry-in
+    epilogue (the add in the output dtype), and the wrapper on CPU tensors."""
+    jax, P = jx
+    h, w = hw
+    xp, e, dz = _inputs(h, w, dtype, seed=h * 7 + w)
+    carry = dz[:, ::-1].copy()  # any (N,2h,2w,F) values exact in dtype
+    want = jax.jit(P._fwd)(_jnp(jax, xp, dtype), _jnp(jax, e, dtype), _jnp(jax, carry, dtype))
+    args = (_torch(xp, dtype), _torch(e, dtype), _torch(carry, dtype))
+    got = H.fwd_plain(*args)
+    torch.testing.assert_close(H.fwd(*args), got, rtol=0, atol=0)
+    assert tuple(got.shape) == want.shape and str(got.dtype) == f"torch.{want.dtype}"
+    assert _rel(got.float().numpy(), np.asarray(want, dtype=np.float32)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_carry_autograd_matches_pallas_vjp(jx, dtype):
+    """UpConv3x3 with a carry vs jax.vjp of up2_conv3x3_pallas_carry:
+    the output, dxp, de, and d(carry) = dz exactly."""
+    jax, P = jx
+    xp, e, dz = _inputs(8, 8, dtype, seed=9)
+    carry = -dz
+    z_j, vjp = jax.vjp(P.up2_conv3x3_pallas_carry, _jnp(jax, xp, dtype),
+                       _jnp(jax, e, dtype), _jnp(jax, carry, dtype))
+    dxp_j, de_j, dc_j = vjp(_jnp(jax, dz, dtype))
+    ts = [_torch(a, dtype).requires_grad_() for a in (xp, e, carry)]
+    z_t = H.up2_conv3x3_hopper(*ts)
+    dxp_t, de_t, dc_t = torch.autograd.grad(z_t, ts, _torch(dz, dtype))
+    for name, got, want in (("z", z_t, z_j), ("dxp", dxp_t, dxp_j), ("de", de_t, de_j)):
+        assert tuple(got.shape) == want.shape, name
+        rel = _rel(got.detach().float().numpy(), np.asarray(want, dtype=np.float32))
+        assert rel < TOL[dtype], (name, rel)
+    np.testing.assert_array_equal(dc_t.float().numpy(), np.asarray(dc_j, dtype=np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_autograd_function_matches_pallas_vjp(jx, dtype):
     """UpConv3x3 (forward kernel, then dz permute + dgrad + wgrad) vs
     jax.vjp of up2_conv3x3_pallas, on CPU tensors (plain versions)."""
@@ -110,12 +147,20 @@ def test_autograd_function_matches_pallas_vjp(jx, dtype):
 
 def test_wrappers_take_plain_versions_on_cpu_only():
     """On CPU tensors the wrappers return the plain result and count no
-    launch; a mix of devices or a wrong dtype raises."""
+    launch, with or without a carry; a mix of devices, a wrong dtype or a
+    carry that does not match the output raises."""
     xp, e, dz = _inputs(4, 4, "float32", seed=1)
     xp_t, e_t = torch.from_numpy(xp), torch.from_numpy(e)
     H.reset_launches()
     torch.testing.assert_close(H.fwd(xp_t, e_t), H.fwd_plain(xp_t, e_t), rtol=0, atol=0)
-    assert H.LAUNCHES == {"fwd": 0, "dgrad": 0, "wgrad": 0}
+    carry = torch.ones(1, 8, 8, F)
+    torch.testing.assert_close(H.fwd(xp_t, e_t, carry), H.fwd_plain(xp_t, e_t, carry),
+                               rtol=0, atol=0)
+    assert H.LAUNCHES == {"fwd": 0, "fwd_carry": 0, "dgrad": 0, "wgrad": 0}
+    with pytest.raises(ValueError):
+        H.fwd(xp_t, e_t, carry[:, :4])
+    with pytest.raises(ValueError):
+        H.fwd(xp_t, e_t, carry.to(torch.bfloat16))
     with pytest.raises(TypeError):
         H.fwd(xp_t.double(), e_t)
     with pytest.raises(TypeError):
@@ -128,10 +173,11 @@ def test_wrappers_take_plain_versions_on_cpu_only():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
-    """The check chip_smoke.py runs in its kernel-parity phase."""
+    """The check chip_smoke.py runs in its kernel-parity phase, the
+    carry-in forward (K1c) against fwd_plain(..., carry) included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run python3 chip_smoke.py on the card)")
     from chip_smoke import phase_kernel_parity
 
     stats = phase_kernel_parity(torch.device("cuda", 0))
-    assert set(stats) == {"fwd", "dgrad", "wgrad"}
+    assert set(stats) == {"fwd", "fwd_carry", "dgrad", "wgrad"}

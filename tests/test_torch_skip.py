@@ -20,6 +20,7 @@ from dip_tpu.models import Skip as FlaxSkip  # noqa: E402
 from dip_tpu.ops import dispatch, pallas_up_conv  # noqa: E402
 from dip_tpu_torch import interop  # noqa: E402
 from dip_tpu_torch.models import Skip  # noqa: E402
+from dip_tpu_torch.ops import hopper_up_conv  # noqa: E402
 
 CFG = dict(num_channels_down=[128] * 2, num_channels_up=[128] * 2,
            num_channels_skip=[4] * 2, upsample_mode="bilinear", pad="reflection")
@@ -35,14 +36,7 @@ def _grad_err(got: dict, want: dict) -> float:
     return max(float(np.abs(got[k] - want[k]).max()) for k in want) / g_max
 
 
-@pytest.mark.parametrize("seam", [True, False])
-def test_forward_and_gradients_match_flax(seam):
-    """Seam on: both sides round the seam's operands to bf16, and f32
-    inputs that differ in their last bits (BN statistics summed in another
-    order) can round to neighbouring bf16 values; the JAX package's own
-    jitted and eager forwards differ by 3e-4 for that reason. Hence atol
-    2e-3 on the output and 5e-2 of the largest gradient. Seam off: f32
-    throughout, 2e-5."""
+def _compare_with_flax(seam: bool, carry: bool = False) -> None:
     for h in (8, 16):
         assert pallas_up_conv.seam_ok(1, h, h, 128, 128, 4)
     rng = np.random.default_rng(0)
@@ -55,12 +49,12 @@ def test_forward_and_gradients_match_flax(seam):
         out = fmodel.apply({"params": p}, jnp.asarray(z))
         return jnp.mean((out - jnp.asarray(tgt)) ** 2), out
 
-    with dispatch.override(up_conv="on" if seam else "off"):
+    with dispatch.override(up_conv="on" if seam else "off", seam_carry=carry):
         (_, want_out), want_g = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
     want_g = {k: v.numpy() for k, v in interop.flax_to_state_dict(
         jax.tree_util.tree_map(np.asarray, want_g)).items()}
 
-    model = Skip(num_input_channels=8, up_conv=seam, **CFG)
+    model = Skip(num_input_channels=8, up_conv=seam, seam_carry=carry, **CFG)
     model.load_state_dict(interop.flax_to_state_dict(
         jax.tree_util.tree_map(np.asarray, params)))
     out = model(torch.from_numpy(z))
@@ -73,6 +67,35 @@ def test_forward_and_gradients_match_flax(seam):
                                atol=out_tol, rtol=0)
     assert set(got_g) == set(want_g)
     assert _grad_err(got_g, want_g) < grad_tol
+
+
+@pytest.mark.parametrize("seam", [True, False])
+def test_forward_and_gradients_match_flax(seam):
+    """Seam on: both sides round the seam's operands to bf16, and f32
+    inputs that differ in their last bits (BN statistics summed in another
+    order) can round to neighbouring bf16 values; the JAX package's own
+    jitted and eager forwards differ by 3e-4 for that reason. Hence atol
+    2e-3 on the output and 5e-2 of the largest gradient. Seam off: f32
+    throughout, 2e-5."""
+    _compare_with_flax(seam)
+
+
+def test_seam_carry_matches_flax(monkeypatch):
+    """seam_carry on both sides: the skip-branch conv result enters each
+    seam as its carry-in (the Pallas kernel's epilogue add, in interpret
+    mode, against fwd_plain's add), and d(carry) flows back to the skip
+    branch. Tolerances as with the seam on. Both decoder seams take a
+    carry on the port's side."""
+    carries = []
+    plain = hopper_up_conv.fwd_plain
+
+    def counting(xp, e, carry=None):
+        carries.append(carry is not None)
+        return plain(xp, e, carry)
+
+    monkeypatch.setattr(hopper_up_conv, "fwd_plain", counting)
+    _compare_with_flax(True, carry=True)
+    assert carries == [True, True]
 
 
 @pytest.mark.parametrize("up_mode", ["bilinear", "nearest"])
