@@ -10,19 +10,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
      shapes in bf16 and f32 and at one ragged shape, with times at the
      flagship shapes; the downsample kernel against its plain version at
      the SR geometries (x4 and x8 at HR 384x576, a ragged batch, gauss12,
-     box, preserve_size=False), with times;
+     box, preserve_size=False), with times; the s2d pack (bitwise) at the
+     five 'kate' seam cotangents, NHWC and channel-planar, and ragged; the
+     3x3 and 1x1 weight-gradient kernels at the 'kate' shapes in bf16 and
+     f32, with times beside their plain versions' and cuDNN's;
   4. small-input reference: a 2-scale 128-channel skip net, forward and
      gradients on the card against the same net on the CPU: under an MSE
      at full resolution, and under the SR loss (x4 downsample, MSE at LR)
-     with the seam's carry-in off and on;
-  5. main paths: the flagship denoising fit (tasks.denoise 'f16', 512^2,
-     run_task) for 30 steps in bf16 and in f32; then the SR fit
-     (tasks.super_resolve x4, HR 384x576, run_task) for 30 steps in bf16,
-     in f32 and in bf16 with the carry-in. Launch counters, set to 0 before
-     each path and read after it, show that every step went through the
+     with the seam's carry-in off and on; and with 128-channel skips,
+     nearest upsampling and every weight gradient from the kernels, under
+     the masked MSE;
+  5. main paths, each through run_task for 30 steps: the flagship
+     denoising fit (tasks.denoise 'f16', 512^2) in bf16 and f32; the SR fit
+     (tasks.super_resolve x4, HR 384x576) in bf16, f32 and bf16 with the
+     carry-in; inpainting 'kate' (512^2, 128-channel skips) with the
+     weight-gradient kernels on, in bf16 and f32, and off; inpainting
+     'library' (6 scales, weight jitter), restoration 'barbara' (50 % of
+     the pixels) and restoration 'kate' (avg-pool downsampling), in bf16.
+     Launch counters, set to 0 just before each fit and read just after
+     it, must equal what the model implies: every step went through the
      kernels;
-  6. no host sync: three more steps per dtype of each fit under torch's
-     sync debug mode, which raises on any call that waits for the device.
+  6. no host sync: three more steps per dtype of the flagship, SR and
+     inpainting 'kate' fits (weight-gradient kernels and weight jitter
+     on) under torch's sync debug mode, which raises on any call that
+     waits for the device.
 The last three lines are the card line, a JSON object of the kernels, and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
 """
@@ -51,6 +62,33 @@ KERNELS = {
     "wgrad": ("dip_tpu_torch/csrc/up_conv.cu", "dip_tpu/ops/pallas_up_conv.py:369"),
 }
 DOWNSAMPLE = ("dip_tpu_torch/csrc/resample.cu", "dip_tpu/ops/pallas_resample.py:119")
+S2D = ("dip_tpu_torch/csrc/s2d.cu", "dip_tpu/ops/pallas_s2d.py:101")
+WGRAD = {"wgrad3x3_s1": ("dip_tpu_torch/csrc/wgrad.cu", "dip_tpu/ops/pallas_wgrad.py:153"),
+         "wgrad1x1": ("dip_tpu_torch/csrc/wgrad.cu", "dip_tpu/ops/pallas_wgrad.py:210")}
+# the seam cotangents of inpainting 'kate' at 512^2, (N, 2h, 2w, 128)
+KATE_DZ = [(1, 2 * h, 2 * h, 128) for h in (16, 32, 64, 128, 256)]
+S2D_RAGGED = [(2, 12, 20, 24), (1, 6, 10, 5)]
+# weight gradients against their plain versions, max-normalised: f32 is
+# true f32 on both sides (sums in another order); bf16 takes the same bf16
+# operands and f32 sums on both sides, the tolerance of a bf16 result
+WGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# (kernel, halo, x shape, g shape, layout): the 'kate' fit's shapes at
+# 512^2 (its reflect-padded 3x3 convs at halo 0; the 1x1 skip, up and head
+# convs), a zero-padded 3x3, ragged batches, and channel-planar inputs
+WGRAD_CASES = [
+    ("wgrad3x3_s1", 0, (1, 514, 514, 128), (1, 512, 512, 128), "nhwc"),
+    ("wgrad3x3_s1", 0, (1, 258, 258, 128), (1, 256, 256, 128), "nhwc"),
+    ("wgrad3x3_s1", 0, (1, 258, 258, 128), (1, 256, 256, 128), "planar"),
+    ("wgrad3x3_s1", 1, (1, 256, 256, 128), (1, 256, 256, 128), "nhwc"),
+    ("wgrad3x3_s1", 1, (2, 19, 23, 24), (2, 19, 23, 40), "nhwc"),
+    ("wgrad1x1", 0, (1, 512, 512, 128), (1, 512, 512, 128), "nhwc"),
+    ("wgrad1x1", 0, (1, 512, 512, 128), (1, 512, 512, 128), "planar"),
+    ("wgrad1x1", 0, (1, 512, 512, 128), (1, 512, 512, 3), "nhwc"),
+    ("wgrad1x1", 0, (1, 512, 512, 32), (1, 512, 512, 128), "nhwc"),
+    ("wgrad1x1", 0, (1, 16, 16, 128), (1, 16, 16, 128), "nhwc"),
+    ("wgrad1x1", 0, (3, 7, 9, 20), (3, 7, 9, 5), "nhwc"),
+]
+FIT_SIZE = 512  # the inpainting and restoration fits
 # the downsample kernel against its plain version: true f32 on both sides
 # (FMA chains against banded f32 matmuls with TF32 off), sums in another order
 DOWN_TOL = 1e-5
@@ -191,37 +229,141 @@ def phase_downsample_parity(dev: torch.device) -> dict:
     return stats
 
 
+def _layout(shape, layout: str, gen, dev, dtype) -> torch.Tensor:
+    """A random NHWC tensor, contiguous, or channel-planar (the NHWC view
+    of an NCHW-contiguous tensor)."""
+    n, h, w, c = shape
+    if layout == "planar":
+        return torch.randn((n, c, h, w), generator=gen, device=dev).to(dtype).permute(0, 2, 3, 1)
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def phase_s2d_parity(dev: torch.device) -> dict:
+    """The s2d pack against s2d_pack_plain, bitwise: the 'kate' seam
+    cotangents f32 -> bf16 and bf16 -> bf16, NHWC and channel-planar (the
+    layout the add after a seam hands back), and ragged channel counts."""
+    from dip_tpu_torch.ops import hopper_s2d as S
+
+    stats = {"max_abs_err": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [(shape, d, "nhwc") for shape in KATE_DZ + S2D_RAGGED
+             for d in (torch.float32, torch.bfloat16)]
+    cases += [(KATE_DZ[-1], d, "planar") for d in (torch.float32, torch.bfloat16)]
+    cases += [(S2D_RAGGED[0], torch.bfloat16, "planar")]
+    for shape, dtype, layout in cases:
+        dz = _layout(shape, layout, gen, dev, dtype)
+        got, want = S.s2d_pack(dz, torch.bfloat16), S.s2d_pack_plain(dz, torch.bfloat16)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype or not got.is_contiguous():
+            raise RuntimeError(f"s2d_pack {tuple(got.shape)} {got.dtype} vs "
+                               f"{tuple(want.shape)} {want.dtype}")
+        _, abs_err = rel_err(got, want)
+        line = (f"[parity] s2d_pack {str(dtype)[6:]:8s}->bf16 {layout:6s} {tuple(shape)}: "
+                f"abs {abs_err:.2e}")
+        if shape[1] >= 256:
+            reps = 20 if shape[1] <= 256 else 10
+            ms = time_ms(lambda: S.s2d_pack(dz, torch.bfloat16), reps)
+            plain_ms = time_ms(lambda: S.s2d_pack_plain(dz, torch.bfloat16), reps)
+            line += f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            if shape == KATE_DZ[-1] and dtype == torch.bfloat16 and layout == "nhwc":
+                stats.update(ms=ms, plain_ms=plain_ms)
+        log(line)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"s2d_pack is not bitwise its plain version ({abs_err:.3e})")
+        stats["max_abs_err"] = max(stats["max_abs_err"], abs_err)
+    return stats
+
+
+def phase_wgrad_parity(dev: torch.device) -> dict:
+    """The 3x3 and 1x1 weight-gradient kernels against their plain
+    versions, with times beside the plain version's and cuDNN's own weight
+    gradient (what the kernel replaces on the path; TF32 off)."""
+    from dip_tpu_torch.ops import hopper_wgrad as W
+
+    stats = {k: {"max_abs_err": 0.0} for k in WGRAD}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, halo, xs, gs, layout in WGRAD_CASES:
+            x = _layout(xs, layout, gen, dev, dtype)
+            g = _layout(gs, layout, gen, dev, dtype)
+            ks = 3 if name == "wgrad3x3_s1" else 1
+            if ks == 3:
+                kern = lambda: W.wgrad3x3_s1(x, g, halo)  # noqa: E731
+                plain = lambda: W.wgrad3x3_s1_plain(x, g, halo)  # noqa: E731
+            else:
+                kern = lambda: W.wgrad1x1(x, g)  # noqa: E731
+                plain = lambda: W.wgrad1x1_plain(x, g)  # noqa: E731
+            w_size = (gs[3], xs[3], ks, ks)
+
+            def cudnn():
+                return torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), w_size, g.permute(0, 3, 1, 2),
+                                            1, halo)
+
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != torch.float32:
+                raise RuntimeError(f"{name} {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)}")
+            rel, abs_err = rel_err(got, want)
+            again = kern()
+            if not torch.equal(again, got):
+                raise RuntimeError(f"{name} is not deterministic")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], abs_err)
+            line = (f"[parity] {name:11s} {str(dtype)[6:]:8s} halo {halo} {layout:6s} x {xs} "
+                    f"g {gs}: rel {rel:.2e} abs {abs_err:.2e}")
+            if xs[1] >= 256:
+                reps = 5 if xs[1] >= 512 else 10
+                ms, plain_ms, dnn_ms = time_ms(kern, reps), time_ms(plain, reps), time_ms(cudnn, reps)
+                line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"cudnn {dnn_ms:.4f} ms")
+                if (dtype, layout, xs[1], xs[3], gs[3]) == (torch.bfloat16, "nhwc", 514 if ks == 3
+                                                            else 512, 128, 128):
+                    stats[name].update(ms=ms, plain_ms=plain_ms)
+            log(line)
+            if rel > WGRAD_TOL[dtype]:
+                raise RuntimeError(f"{name} disagrees with its plain version: "
+                                   f"rel {rel:.3e} > {WGRAD_TOL[dtype]}")
+            del x, g, got, want, again
+    return stats
+
+
 def phase_small_reference(dev: torch.device) -> None:
-    """The flagship-shaped net at 2 scales and 32^2 (decoder seams at LR 8
-    and 16): forward and all gradients on the card vs the CPU, same weights.
-    Under an MSE at full resolution, and under the SR loss (x4 downsample,
-    then an MSE at LR 8^2) with the seam's carry-in off and on, which holds
-    the downsample kernel's adjoint and the carry's backward on the card."""
+    """2-scale 128-channel skip nets at 32^2 (decoder seams at LR 8 and
+    16): forward and all gradients on the card vs the CPU, same weights.
+    The flagship's shape (4-channel skips, bilinear) under an MSE at full
+    resolution, and under the SR loss (x4 downsample, then an MSE at LR
+    8^2) with the seam's carry-in off and on, which holds the downsample
+    kernel's adjoint and the carry's backward on the card; then the
+    inpainting 'kate' shape (128-channel skips, nearest) with every
+    weight gradient from the kernels, under the masked MSE."""
     from dip_tpu_torch.models import Skip
+    from dip_tpu_torch.ops.losses import masked_mse
     from dip_tpu_torch.ops.resample import downsample
 
-    def net():
-        return Skip(num_input_channels=8, num_channels_down=[128] * 2,
-                    num_channels_up=[128] * 2, num_channels_skip=[4] * 2,
-                    upsample_mode="bilinear", pad="reflection")
-
-    cpu, gpu = net(), net()
-    cpu.reset_parameters(torch.Generator().manual_seed(3))
-    gpu.load_state_dict(cpu.state_dict())
-    gpu.to(dev)
+    flagship = dict(num_channels_skip=[4] * 2, upsample_mode="bilinear")
+    kate = dict(num_channels_skip=[128] * 2, upsample_mode="nearest", conv_wgrad="all")
     rng = np.random.default_rng(3)
     z = torch.from_numpy(rng.normal(size=(1, 32, 32, 8)).astype(np.float32)) * 0.1
     tgt = torch.from_numpy(rng.random((1, 32, 32, 3)).astype(np.float32))
     tgt_lr = torch.from_numpy(rng.random((1, 8, 8, 3)).astype(np.float32))
-    cases = (("mse at 32^2", False, lambda out, d: torch.mean((out - tgt.to(d)) ** 2)),
-             ("sr x4 lanczos2, mse at 8^2", False,
-              lambda out, d: torch.mean((downsample(out, 4, "lanczos2", 0.5, True)
-                                         - tgt_lr.to(d)) ** 2)))
-    cases += (("sr x4 lanczos2, mse at 8^2, seam carry", True, cases[1][2]),)
-    for what, carry, loss_of in cases:
+    mask = torch.from_numpy((rng.random((1, 32, 32, 3)) > 0.3).astype(np.float32))
+
+    def sr_loss(out, d):
+        return torch.mean((downsample(out, 4, "lanczos2", 0.5, True) - tgt_lr.to(d)) ** 2)
+
+    cases = (("mse at 32^2", flagship, False, lambda out, d: torch.mean((out - tgt.to(d)) ** 2)),
+             ("sr x4 lanczos2, mse at 8^2", flagship, False, sr_loss),
+             ("sr x4 lanczos2, mse at 8^2, seam carry", flagship, True, sr_loss),
+             ("128-ch skips, nearest, conv_wgrad=all, masked mse", kate, False,
+              lambda out, d: masked_mse(out, tgt.to(d), mask.to(d))))
+    for what, cfg, carry, loss_of in cases:
+        cpu, gpu = (Skip(num_input_channels=8, num_channels_down=[128] * 2,
+                         num_channels_up=[128] * 2, pad="reflection", seam_carry=carry, **cfg)
+                    for _ in range(2))
+        cpu.reset_parameters(torch.Generator().manual_seed(3))
+        gpu.load_state_dict(cpu.state_dict())
+        gpu.to(dev)
         outs, grads = [], []
         for model, d in ((cpu, "cpu"), (gpu, dev)):
-            model.seam_carry = carry
             out = model(z.to(d))
             loss = loss_of(out, d)
             grads.append([g.cpu() for g in torch.autograd.grad(loss, list(model.parameters()))])
@@ -239,44 +381,116 @@ def phase_small_reference(dev: torch.device) -> None:
             raise RuntimeError(f"small-input forward/gradients disagree with the CPU ({what})")
 
 
-def phase_main_path(dev: torch.device, card: str) -> dict:
-    from dip_tpu_torch.bench import synthetic_noisy
+def _kernel_modules() -> tuple:
+    from dip_tpu_torch.ops import hopper_resample, hopper_s2d, hopper_up_conv, hopper_wgrad
+
+    return hopper_up_conv, hopper_resample, hopper_s2d, hopper_wgrad
+
+
+def reset_counts() -> None:
+    """Set every kernel wrapper's launch counter to 0."""
+    for mod in _kernel_modules():
+        mod.reset_launches()
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counter, by kernel."""
+    return {k: v for mod in _kernel_modules() for k, v in mod.LAUNCHES.items()}
+
+
+def wgrad_per_step(model) -> tuple[int, int]:
+    """(3x3, 1x1) weight-gradient kernel launches per training step of a
+    Skip whose every decoder scale takes the fused seam (true of the fits
+    here): the routing of models/blocks._conv2d over the model's convs.
+    With the seam, a decoder conv's only conv part is its skip branch."""
+    n = len(model.ch_skip)
+    if any(k != 3 for k in model.k_up) or any(m not in ("nearest", "bilinear")
+                                               for m in model.up_modes):
+        raise ValueError("the count assumes a fused seam at every decoder scale")
+    kinds = []  # kernel size of each stride-1 conv, per step
+    for i in range(n):
+        if model.ch_skip[i]:
+            kinds.append(model.filter_skip_size)
+        if model.down_modes[i] != "stride":  # stride-1 conv, then the post-down
+            kinds.append(model.k_down[i])
+        kinds.append(model.k_down[i])
+        if model.ch_skip[i]:
+            kinds.append(model.k_up[i])
+        if model.need1x1_up:
+            kinds.append(1)
+    kinds.append(1)  # the head
+    mode = model.conv_wgrad
+    return (kinds.count(3) if mode in ("3x3", "all") else 0,
+            kinds.count(1) if mode in ("1x1", "all") else 0)
+
+
+def path_launches(model, steps: int, downsample_per_step: int = 0) -> dict:
+    """What a `steps`-step fit and its render launch: each of the seams
+    runs fwd (or fwd_carry where a skip branch hands it its carry), the s2d
+    pack of dz, dgrad and wgrad a step, and fwd once more in the render;
+    the weight-gradient kernels as wgrad_per_step says."""
+    n_seams = len(model.ch_skip)
+    carried = sum(1 for c in model.ch_skip if c) if model.seam_carry else 0
+    k3, k1 = wgrad_per_step(model)
+    return {"fwd": (steps + 1) * (n_seams - carried), "fwd_carry": (steps + 1) * carried,
+            "dgrad": steps * n_seams, "wgrad": steps * n_seams, "downsample":
+            downsample_per_step * steps, "s2d_pack": steps * n_seams,
+            "wgrad3x3_s1": k3 * steps, "wgrad1x1": k1 * steps}
+
+
+def run_fit(spec, dev: torch.device, card: str, prefix: str, tag: str, want: dict,
+            rising: str | None) -> dict:
+    """One fit through run_task, with every launch counter set to 0 just
+    before it and read just after: its it/s (steps 11-30), loss, metrics
+    and launches. Raises unless the loss is finite and falls, `rising` (a
+    metric) rises, the render is finite and of the image's shape, and the
+    launch counts equal `want`."""
     from dip_tpu_torch.fit.engine import tf32_flags
-    from dip_tpu_torch.ops import hopper_up_conv as H
-    from dip_tpu_torch.tasks import denoise
     from dip_tpu_torch.tasks.base import run_task
 
+    marks: list[tuple[int, float]] = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    out, _, hist = run_task(spec, 0, device=dev,
+                            callback=lambda it, h, s: marks.append((it, time.perf_counter())))
+    delta = launch_counts()
+    out = out.cpu()
+    (i0, t0), (i1, t1) = marks[0], marks[-1]
+    ips = (i1 - i0) / (t1 - t0)
+    loss = hist["loss"]
+    metrics = " | ".join(f"{k} {v[0]:.2f} -> {v[-1]:.2f} dB" for k, v in hist.items()
+                         if k.startswith("psnr"))
+    log(f"[{prefix}] {tag}: {ips:.2f} it/s, {1e3 / ips:.2f} ms/step (steps {i0 + 1}-{i1}) "
+        f"| loss {loss[0]:.5f} -> {loss[-1]:.5f} | {metrics} | backtracked "
+        f"{int(hist['backtracked'].sum()) if 'backtracked' in hist else '-'} | peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB | launches {delta} "
+        f"| {tf32_flags()} | card {card}")
+    if delta != want:
+        raise RuntimeError(f"launch counts {delta} != {want}")
+    if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
+        raise RuntimeError(f"loss not finite and falling: {loss}")
+    if rising is not None and not hist[rising][-1] > hist[rising][0]:
+        raise RuntimeError(f"{rising} not rising: {hist[rising]}")
+    want_shape = (1, *spec.spatial_size, spec.model.num_output_channels)
+    if tuple(out.shape) != want_shape or not torch.isfinite(out).all():
+        raise RuntimeError(f"bad output {tuple(out.shape)}, expected {want_shape}")
+    return delta
+
+
+def phase_main_path(dev: torch.device, card: str) -> dict:
+    from dip_tpu_torch.bench import synthetic_noisy
+    from dip_tpu_torch.tasks import denoise
+
     clean, noisy = synthetic_noisy(512)
-    H.reset_launches()
+    total: dict = {}
     for cd in ("bfloat16", None):
         spec = denoise.task(noisy, "f16", gt=clean, num_iter=MAIN_STEPS)
         spec = dataclasses.replace(spec, cfg=dataclasses.replace(
             spec.cfg, compute_dtype=cd, log_every=10))
-        before = dict(H.LAUNCHES)
-        marks: list[tuple[int, float]] = []
-        torch.cuda.reset_peak_memory_stats(dev)
-        out, _, hist = run_task(spec, 0, device=dev,
-                                callback=lambda it, h, s: marks.append((it, time.perf_counter())))
-        out = out.cpu()
-        delta = {k: H.LAUNCHES[k] - before[k] for k in H.LAUNCHES}
-        want = {"fwd": 5 * MAIN_STEPS + 5, "fwd_carry": 0, "dgrad": 5 * MAIN_STEPS,
-                "wgrad": 5 * MAIN_STEPS}
-        loss = hist["loss"]
-        tag = cd or "float32"
-        (i0, t0), (i1, t1) = marks[0], marks[-1]
-        ips = (i1 - i0) / (t1 - t0)
-        log(f"[main] {tag}: {ips:.2f} it/s, {1e3 / ips:.2f} ms/step (steps {i0 + 1}-{i1}) "
-            f"| loss {loss[0]:.5f} -> {loss[-1]:.5f} | psnr_gt {hist['psnr_gt'][-1]:.2f} dB "
-            f"| backtracked {int(hist['backtracked'].sum())} | peak "
-            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB | launches {delta} "
-            f"| {tf32_flags()} | card {card}")
-        if delta != want:
-            raise RuntimeError(f"launch counts {delta} != {want}")
-        if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
-            raise RuntimeError(f"loss not finite and falling: {loss}")
-        if out.shape != (1, 512, 512, 3) or not torch.isfinite(out).all():
-            raise RuntimeError(f"bad output {tuple(out.shape)}")
-    return dict(H.LAUNCHES)
+        delta = run_fit(spec, dev, card, "main", cd or "float32",
+                        path_launches(spec.model, MAIN_STEPS), None)
+        total = {k: total.get(k, 0) + v for k, v in delta.items()}
+    return total
 
 
 def synthetic_sr(factor: int = 4) -> tuple[np.ndarray, np.ndarray]:
@@ -308,108 +522,134 @@ def _sr_spec(cd: str | None, carry: bool):
 def phase_sr_path(dev: torch.device, card: str) -> dict:
     """The SR fit (x4, HR 384x576, Skip 5x128) through run_task, in bf16,
     in f32 and in bf16 with the seam's carry-in: falling loss, rising
-    psnr_lr, and the launch counts the code implies."""
-    from dip_tpu_torch.fit.engine import tf32_flags
-    from dip_tpu_torch.ops import hopper_resample as HR
-    from dip_tpu_torch.ops import hopper_up_conv as H
-    from dip_tpu_torch.tasks.base import run_task
-
+    psnr_lr, and the launch counts the code implies (one downsample in the
+    loss and one in the metrics a step; its backward is PyTorch)."""
     log("[sr] LR observation: 4x4 block mean of a synthetic HR image made with numpy "
         "(the recipe's PIL Lanczos LR is covered by the CPU tests)")
-    H.reset_launches()
-    HR.reset_launches()
+    total: dict = {}
     for cd, carry in (("bfloat16", False), (None, False), ("bfloat16", True)):
         spec = _sr_spec(cd, carry)
-        before = {**H.LAUNCHES, **HR.LAUNCHES}
-        marks: list[tuple[int, float]] = []
-        torch.cuda.reset_peak_memory_stats(dev)
-        out, _, hist = run_task(spec, 0, device=dev,
-                                callback=lambda it, h, s: marks.append((it, time.perf_counter())))
-        out = out.cpu()
-        delta = {k: v - before[k] for k, v in {**H.LAUNCHES, **HR.LAUNCHES}.items()}
-        # per step: one downsample in the loss and one in the metrics (its
-        # backward is PyTorch); each of the 5 seams runs fwd, dgrad and
-        # wgrad, and the render runs each seam's fwd once more. With the
-        # carry-in, a seam whose scale has a skip branch runs fwd_carry.
-        n_seams = len(spec.model.ch_skip)
-        carried = sum(1 for c in spec.model.ch_skip if c) if carry else 0
-        fwds = MAIN_STEPS + 1
-        want = {"fwd": fwds * (n_seams - carried), "fwd_carry": fwds * carried,
-                "dgrad": MAIN_STEPS * n_seams, "wgrad": MAIN_STEPS * n_seams,
-                "downsample": 2 * MAIN_STEPS}
-        loss, p_lr = hist["loss"], hist["psnr_lr"]
-        tag = (cd or "float32") + (" carry" if carry else "")
-        (i0, t0), (i1, t1) = marks[0], marks[-1]
-        ips = (i1 - i0) / (t1 - t0)
-        log(f"[sr] {tag}: {ips:.2f} it/s, {1e3 / ips:.2f} ms/step (steps {i0 + 1}-{i1}) "
-            f"| loss {loss[0]:.5f} -> {loss[-1]:.5f} | psnr_lr {p_lr[0]:.2f} -> "
-            f"{p_lr[-1]:.2f} dB | psnr_hr {hist['psnr_hr'][-1]:.2f} dB | backtracked "
-            f"{int(hist['backtracked'].sum())} | peak "
-            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB | launches {delta} "
-            f"| {tf32_flags()} | card {card}")
-        if delta != want:
-            raise RuntimeError(f"launch counts {delta} != {want}")
-        if not np.isfinite(loss).all() or not loss[-1] < loss[0] or not p_lr[-1] > p_lr[0]:
-            raise RuntimeError(f"loss not finite and falling, or psnr_lr not rising: "
-                               f"{loss}, {p_lr}")
-        if out.shape != (1, *SR_HR, 3) or not torch.isfinite(out).all():
-            raise RuntimeError(f"bad output {tuple(out.shape)}")
-    return {**H.LAUNCHES, **HR.LAUNCHES}
+        delta = run_fit(spec, dev, card, "sr", (cd or "float32") + (" carry" if carry else ""),
+                        path_launches(spec.model, MAIN_STEPS, downsample_per_step=2), "psnr_lr")
+        total = {k: total.get(k, 0) + v for k, v in delta.items()}
+    return total
 
 
-def phase_step_without_sync(dev: torch.device) -> None:
-    """Engine.step of the flagship fit only enqueues work: under torch's
-    sync debug mode any call that makes the host wait for the device (a
-    read of a device value, a copy from pageable host memory) raises."""
-    from dip_tpu_torch.bench import synthetic_noisy
+def synthetic_inpaint(size: int = FIT_SIZE) -> tuple[np.ndarray, np.ndarray]:
+    """(image, mask): a (1, size, size, 3) smooth image with texture, made
+    with numpy, and a text-like mask of its own: rows of small zeroed
+    blocks, as a line of glyphs would be (Pillow, which draws the recipe's
+    text mask, is not needed here; the CPU tests cover the text mask)."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    img = np.stack([np.sin(xx / 21) * np.cos(yy / 29) * 0.5 + 0.5,
+                    np.cos((xx - yy) / 17) * 0.4 + 0.5,
+                    np.sin(xx / 7) * np.sin(yy / 9) * 0.2 + (xx + yy) / (4 * size) + 0.3],
+                   axis=-1)
+    img = np.clip(img + np.random.default_rng(1).random(img.shape) * 0.05, 0, 1)
+    mask = np.ones((size, size, 3), np.float32)
+    rng = np.random.default_rng(2)
+    for y0 in range(size // 8, size - size // 8, size // 8):
+        for x0 in range(size // 16, size - size // 16, 14):
+            if rng.random() < 0.7:
+                mask[y0:y0 + 12, x0:x0 + 3 + int(rng.integers(0, 8))] = 0
+    return img[None].astype(np.float32), mask[None]
+
+
+def _masked_spec(task: str, preset: str, cd: str | None, wgrad: str, param_noise=None):
+    """A 30-step inpainting or restoration spec on the synthetic image,
+    with its mask (restoration: the Bernoulli mask of the preset's pixel
+    fraction), conv_wgrad and, if given, param_noise."""
+    from dip_tpu_torch.tasks import inpaint, restore
+
+    img, mask = synthetic_inpaint()
+    if task == "inpaint":
+        spec = inpaint.task(img * mask, mask, preset, gt=img, num_iter=MAIN_STEPS)
+    else:
+        keep = {"barbara": 0.5, "kate": 0.02}[preset]
+        mask = restore.get_bernoulli_mask(img.shape[1:], 1 - keep)[None]
+        spec = restore.task(img * mask, mask, preset, num_iter=MAIN_STEPS, gt=img)
+    spec.model.conv_wgrad = wgrad
+    over = dict(compute_dtype=cd, log_every=10)
+    if param_noise is not None:
+        over["param_noise"] = param_noise
+    return dataclasses.replace(spec, cfg=dataclasses.replace(spec.cfg, **over))
+
+
+# (task, preset, compute dtype, conv_wgrad); 'kate' with the kernels off is
+# the timing pair of 'kate' with them on
+MASKED_FITS = [("inpaint", "kate", "bfloat16", "all"), ("inpaint", "kate", None, "all"),
+               ("inpaint", "kate", "bfloat16", "off"), ("inpaint", "kate", None, "off"),
+               ("inpaint", "library", "bfloat16", "all"),
+               ("restore", "barbara", "bfloat16", "all"), ("restore", "kate", "bfloat16", "all")]
+
+
+def phase_masked_paths(dev: torch.device, card: str) -> dict:
+    """Inpainting and restoration through run_task at 512^2: falling loss,
+    rising psnr_track (the PSNR on the observed pixels), a finite render,
+    and the launch counts the model implies. Returns the launches of the
+    'kate' bf16 fit with every weight gradient from the kernels."""
+    log(f"[masked] images: a synthetic {FIT_SIZE}^2 numpy image; inpainting masks rows of "
+        f"small blocks, restoration keeps a Bernoulli fraction of the pixels")
+    first = None
+    for task, preset, cd, wgrad in MASKED_FITS:
+        spec = _masked_spec(task, preset, cd, wgrad)
+        tag = f"{task} {preset} {cd or 'float32'} conv_wgrad={wgrad}" + (
+            " param_noise" if spec.cfg.param_noise else "")
+        delta = run_fit(spec, dev, card, "masked", tag, path_launches(spec.model, MAIN_STEPS),
+                        "psnr_track")
+        first = first or delta
+    return first
+
+
+def _steps_without_sync(spec, dev: torch.device, what: str) -> None:
+    """Engine.step only enqueues work: after one warm step, three steps
+    under torch's sync debug mode, which raises on any call that makes the
+    host wait for the device (a read of a device value, a copy from
+    pageable host memory)."""
     from dip_tpu_torch.fit.engine import Engine
-    from dip_tpu_torch.tasks import denoise
     from dip_tpu_torch.tasks.base import make_input, to_device
+
+    eng = Engine(spec.model, spec.loss_fn, spec.cfg, spec.metrics_fn, device=dev)
+    state = eng.init_state(1, make_input(spec, torch.Generator().manual_seed(0), dev),
+                           spec.extra_params)
+    aux = to_device(spec.aux, dev)
+    eng.step(state, aux)  # first step: device constants, optimizer state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            eng.step(state, aux)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[sync] {what}: 3 steps made no host sync")
+
+
+def phase_steps_without_sync(dev: torch.device) -> None:
+    """The flagship step (jitter, EMA, backtracking), the SR step (the
+    downsample kernel in the loss and the metrics, its PyTorch adjoint, the
+    carry-in seams), and the inpainting 'kate' step with every weight
+    gradient from the kernels and weight jitter on."""
+    from dip_tpu_torch.bench import synthetic_noisy
+    from dip_tpu_torch.tasks import denoise
 
     clean, noisy = synthetic_noisy(512)
     for cd in ("bfloat16", None):
         spec = denoise.task(noisy, "f16", gt=clean)
-        eng = Engine(spec.model, spec.loss_fn,
-                     dataclasses.replace(spec.cfg, compute_dtype=cd),
-                     spec.metrics_fn, device=dev)
-        state = eng.init_state(1, make_input(spec, torch.Generator().manual_seed(0), dev))
-        aux = to_device(spec.aux, dev)
-        eng.step(state, aux)  # first step: device constants, optimizer state
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            for _ in range(3):
-                eng.step(state, aux)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        log(f"[sync] {cd or 'float32'}: 3 flagship steps (jitter, EMA, backtracking) "
-            f"made no host sync")
-
-
-def phase_sr_step_without_sync(dev: torch.device) -> None:
-    """The same check for the SR fit's step (the downsample kernel in the
-    loss and the metrics, its PyTorch adjoint, the carry-in seams)."""
-    from dip_tpu_torch.fit.engine import Engine
-    from dip_tpu_torch.tasks.base import make_input, to_device
-
+        spec = dataclasses.replace(spec, cfg=dataclasses.replace(spec.cfg, compute_dtype=cd))
+        _steps_without_sync(spec, dev, f"flagship {cd or 'float32'}")
     for cd, carry in (("bfloat16", True), (None, False)):
-        spec = _sr_spec(cd, carry)
-        eng = Engine(spec.model, spec.loss_fn, spec.cfg, spec.metrics_fn, device=dev)
-        state = eng.init_state(1, make_input(spec, torch.Generator().manual_seed(0), dev),
-                               spec.extra_params)
-        aux = to_device(spec.aux, dev)
-        eng.step(state, aux)  # first step: device constants, optimizer state
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            for _ in range(3):
-                eng.step(state, aux)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        log(f"[sync] sr {cd or 'float32'}{' carry' if carry else ''}: 3 SR steps "
-            f"(jitter, downsample, backtracking) made no host sync")
+        _steps_without_sync(_sr_spec(cd, carry), dev,
+                            f"sr {cd or 'float32'}{' carry' if carry else ''}")
+    for cd in ("bfloat16", None):
+        _steps_without_sync(_masked_spec("inpaint", "kate", cd, "all", param_noise=True), dev,
+                            f"inpaint kate {cd or 'float32'} conv_wgrad=all param_noise")
+
+
+def _entry(name: str, src_rep: tuple[str, str], launches: int, stats: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": src_rep[0], "replaces": src_rep[1],
+            "launches": launches, "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
+            "plain_ms": stats["plain_ms"]}
 
 
 def main() -> int:
@@ -424,23 +664,23 @@ def main() -> int:
     phase_build()
     stats = phase_kernel_parity(dev)
     down = phase_downsample_parity(dev)
+    s2d = phase_s2d_parity(dev)
+    wgrad = phase_wgrad_parity(dev)
     phase_small_reference(dev)
     launches = phase_main_path(dev, card)
     sr_launches = phase_sr_path(dev, card)
-    phase_step_without_sync(dev)
-    phase_sr_step_without_sync(dev)
+    masked_launches = phase_masked_paths(dev, card)
+    phase_steps_without_sync(dev)
     # each kernel's launches come from the main path that runs it: the
-    # flagship fit for the seam's fwd, dgrad and wgrad, the SR fits for the
-    # carry-in forward and the downsample
-    kernels = [{"name": f"up_conv_{k}", "route": "cuda", "source": src, "replaces": rep,
-                "launches": (sr_launches if k == "fwd_carry" else launches)[k],
-                "max_abs_err": stats[k]["max_abs_err"],
-                "ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"]}
-               for k, (src, rep) in KERNELS.items()]
-    kernels.append({"name": "downsample_fused", "route": "cuda", "source": DOWNSAMPLE[0],
-                    "replaces": DOWNSAMPLE[1], "launches": sr_launches["downsample"],
-                    "max_abs_err": down["max_abs_err"], "ms": down["ms"],
-                    "plain_ms": down["plain_ms"]})
+    # flagship fit for the seam's fwd, dgrad and wgrad and the s2d pack,
+    # the SR fits for the carry-in forward and the downsample, the
+    # inpainting 'kate' bf16 fit for the weight gradients
+    kernels = [_entry(f"up_conv_{k}", src_rep,
+                      (sr_launches if k == "fwd_carry" else launches)[k], stats[k])
+               for k, src_rep in KERNELS.items()]
+    kernels.append(_entry("downsample_fused", DOWNSAMPLE, sr_launches["downsample"], down))
+    kernels.append(_entry("s2d_pack", S2D, launches["s2d_pack"], s2d))
+    kernels += [_entry(k, src_rep, masked_launches[k], wgrad[k]) for k, src_rep in WGRAD.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,11 @@ torch.where on a device-side condition.
 
 Semantics (as the JAX engine):
  - input jitter: z_used = z + N(0,1) * reg_noise_std each step;
+ - weight jitter (param_noise): before each training forward, every 4-D
+   net parameter (the conv weights) gets N(0,1) * std(w) / 50, drawn from
+   a generator of its own and added in f32 before any bf16 cast; the
+   gradient flows through std(w) as in the JAX package. The render and
+   the master weights get no noise;
  - EMA output smoothing, initialised to the first output;
  - backtracking: if the tracked PSNR drops more than
    `backtrack_threshold` dB below the last good value, restore the
@@ -42,6 +47,7 @@ class FitConfig:
     lr: float = 0.01
     optimizer: str = "adam"
     reg_noise_std: float = 0.0        # input jitter std
+    param_noise: bool = False         # conv-weight jitter
     exp_weight: float | None = None   # EMA factor, e.g. 0.99
     backtrack: bool = False
     backtrack_threshold: float = 5.0
@@ -64,6 +70,7 @@ class FitState:
     snapshot: dict[str, torch.Tensor]  # params for backtracking ({} if off)
     last_track: torch.Tensor           # tracked PSNR at the last good step
     step: int
+    param_generator: torch.Generator | None = None  # weight jitter (param_noise)
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -127,8 +134,9 @@ class Engine:
                    extra_params: dict[str, torch.Tensor] | None = None) -> FitState:
         """Initialise the weights from `seed` (on a CPU generator, so every
         device gets the same weights), the trainable set, the optimizer and
-        the jitter stream. `extra_params` are further trainable leaves, by
-        name, with their initial values."""
+        the jitter streams: input jitter from seed + 1, weight jitter from
+        seed + 2, each on its own device generator. `extra_params` are
+        further trainable leaves, by name, with their initial values."""
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         params = dict(self.model.named_parameters())
         z = z.to(self.device)
@@ -141,16 +149,34 @@ class Engine:
             params[k] = v.detach().to(self.device, torch.float32).clone().requires_grad_()
         opt = torch.optim.Adam(params.values(), lr=self.cfg.lr)
         jitter = torch.Generator(device=self.device).manual_seed(seed + 1)
+        param_gen = (torch.Generator(device=self.device).manual_seed(seed + 2)
+                     if self.cfg.param_noise else None)
         snapshot = ({k: p.detach().clone() for k, p in params.items()}
                     if self.cfg.backtrack else {})
         return FitState(params=params, opt=opt, z=z, ema_out=None,
                         generator=jitter, snapshot=snapshot,
-                        last_track=torch.zeros((), device=self.device), step=0)
+                        last_track=torch.zeros((), device=self.device), step=0,
+                        param_generator=param_gen)
 
-    def _forward(self, params: dict[str, torch.Tensor], z: torch.Tensor) -> torch.Tensor:
+    def net_params(self, state: FitState, train: bool) -> dict[str, torch.Tensor]:
+        """The net's parameters as a forward sees them, in f32: with
+        param_noise and `train`, each 4-D one plus N(0,1) * std(w) / 50
+        (std with ddof 0, as jnp.std), a fresh draw per call."""
+        net = {k: state.params[k] for k in self.net_keys}
+        if not (train and self.cfg.param_noise):
+            return net
+        for k, w in net.items():
+            if w.dim() == 4:
+                noise = torch.randn(w.shape, generator=state.param_generator,
+                                    device=w.device, dtype=w.dtype)
+                net[k] = w + noise * (torch.std(w, correction=0) / 50.0)
+        return net
+
+    def _forward(self, net: dict[str, torch.Tensor], z: torch.Tensor) -> torch.Tensor:
         if self.cfg.compute_dtype is None:
-            return self.model(z)
-        cast = {k: params[k].to(torch.bfloat16) for k in self.net_keys}
+            # without weight jitter, `net` holds the model's own parameters
+            return functional_call(self.model, net, (z,)) if self.cfg.param_noise else self.model(z)
+        cast = {k: v.to(torch.bfloat16) for k, v in net.items()}
         return functional_call(self.model, cast, (z.to(torch.bfloat16),)).to(torch.float32)
 
     def _base_input(self, state: FitState) -> torch.Tensor:
@@ -163,7 +189,7 @@ class Engine:
             z_used = z_used + cfg.reg_noise_std * torch.randn(
                 state.z.shape, generator=state.generator, device=self.device,
                 dtype=state.z.dtype)
-        out = self._forward(state.params, z_used)
+        out = self._forward(self.net_params(state, train=True), z_used)
         loss = self.loss_fn(state.params, out, aux)
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -221,7 +247,8 @@ class Engine:
         when z is optimised), copied so that an identity net's render is
         no view of a trainable leaf."""
         with torch.no_grad():
-            return self._forward(state.params, self._base_input(state).clone())
+            return self._forward(self.net_params(state, train=False),
+                                 self._base_input(state).clone())
 
 
 def default_metrics(target: torch.Tensor, gt: torch.Tensor | None = None):

@@ -17,8 +17,21 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dip_tpu_torch.ops import hopper_wgrad
 from dip_tpu_torch.ops.pad import pad2d
+from dip_tpu_torch.ops.resample import avg_pool, downsample, max_pool
 from dip_tpu_torch.ops.up_conv import Up2, up2_conv3x3, up2_moments
+
+# which convs take their weight gradient from the Hopper kernels (the JAX
+# package's DIP_PALLAS_WGRAD '0' | '1x1' | '3x3' | '1'/'all')
+CONV_WGRAD = ("off", "1x1", "3x3", "all")
+POST_DOWN = ("avg", "max", "lanczos2", "lanczos3")
+
+
+def check_conv_wgrad(mode: str) -> str:
+    if mode not in CONV_WGRAD:
+        raise ValueError(f"conv_wgrad {mode!r} is not one of {CONV_WGRAD}")
+    return mode
 
 
 def torch_conv_init_(weight: torch.Tensor, bias: torch.Tensor | None,
@@ -119,8 +132,16 @@ class TrainBatchNorm(nn.Module):
 
 
 def _conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int,
-            padding: int) -> torch.Tensor:
-    """NHWC in, NHWC out, OIHW weight."""
+            padding: int, wgrad: str = "off") -> torch.Tensor:
+    """NHWC in, NHWC out, OIHW weight. With `wgrad` on for its kind, a
+    stride-1 3x3 conv (padding 1, or 0 on a pre-padded input) or a 1x1 conv
+    takes its weight gradient from a Hopper kernel (ops/hopper_wgrad.py);
+    every other conv is cuDNN's, as conv2d_fast routes in the JAX package."""
+    ks = weight.shape[-1]
+    if stride == 1 and ks == 3 and padding in (0, 1) and wgrad in ("3x3", "all"):
+        return hopper_wgrad.conv3x3_s1(x, weight, padding)
+    if stride == 1 and ks == 1 and padding == 0 and wgrad in ("1x1", "all"):
+        return hopper_wgrad.conv1x1(x, weight)
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride, padding)
     return y.permute(0, 2, 3, 1)
 
@@ -128,6 +149,9 @@ def _conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int,
 class Conv(nn.Module):
     """Padded conv; takes a tensor or a list of NHWC parts (a virtual
     channel concat: conv(concat(parts), W) == sum_i conv(part_i, W_i)).
+    With stride > 1 and a downsample_mode other than 'stride', the conv
+    runs at stride 1 and is followed by avg or max pooling or a fixed
+    Lanczos downsample (the reference's conv()).
 
     `in_scale`/`in_shift` fold a preceding per-channel affine map (a BN
     from TrainBatchNorm(as_affine=True)) into the conv:
@@ -135,17 +159,19 @@ class Conv(nn.Module):
     for reflection/replication padding and for 1x1 convs. Up2 parts go to
     the fused seam, up2_conv3x3; with `seam_carry` the parts summed before an
     Up2 part (the decoder's skip-branch conv) enter the seam as its carry-in.
+    `conv_wgrad` (one of CONV_WGRAD) routes the stride-1 3x3 and the 1x1
+    convs' weight gradients through the Hopper kernels.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
                  stride: int = 1, bias: bool = True, pad: str = "zero",
                  downsample_mode: str = "stride"):
         super().__init__()
-        if stride != 1 and downsample_mode != "stride":
-            raise ValueError(
-                f"downsample_mode {downsample_mode!r} is not ported yet; only 'stride'")
+        if downsample_mode not in ("stride", *POST_DOWN):
+            raise ValueError(f"unknown downsample_mode {downsample_mode!r}")
         self.kernel_size = kernel_size
         self.stride = stride
+        self.post_down = None if stride == 1 or downsample_mode == "stride" else downsample_mode
         self.pad = pad
         self.weight = nn.Parameter(
             torch.empty(features, in_channels, kernel_size, kernel_size))
@@ -156,8 +182,10 @@ class Conv(nn.Module):
 
     def forward(self, x, in_scale: torch.Tensor | None = None,
                 in_shift: torch.Tensor | None = None,
-                seam_carry: bool = False) -> torch.Tensor:
-        ks, stride = self.kernel_size, self.stride
+                seam_carry: bool = False, conv_wgrad: str = "off") -> torch.Tensor:
+        ks = self.kernel_size
+        stride = 1 if self.post_down else self.stride
+        wgrad = check_conv_wgrad(conv_wgrad)
         if in_scale is not None and ks > 1 and self.pad not in (
                 "reflection", "replication"):
             raise ValueError(
@@ -182,9 +210,9 @@ class Conv(nn.Module):
                     continue
                 yi = up2_conv3x3(p.x, kp.permute(2, 3, 1, 0), p.mode, self.pad)
             elif self.pad in ("reflection", "replication") and to_pad > 0:
-                yi = _conv2d(pad2d(p, to_pad, self.pad), kp, stride, 0)
+                yi = _conv2d(pad2d(p, to_pad, self.pad), kp, stride, 0, wgrad)
             else:
-                yi = _conv2d(p, kp, stride, to_pad)
+                yi = _conv2d(p, kp, stride, to_pad, wgrad)
             y = yi if y is None else y + yi
             off += ci
         if in_shift is not None:
@@ -192,6 +220,13 @@ class Conv(nn.Module):
                 (1, 2, 3)).to(y.dtype)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
+        if self.post_down == "avg":
+            y = avg_pool(y, self.stride)
+        elif self.post_down == "max":
+            y = max_pool(y, self.stride)
+        elif self.post_down:
+            # the downsample kernel takes f32
+            y = downsample(y.float(), self.stride, self.post_down, 0.5, True).to(y.dtype)
         return y
 
 

@@ -21,7 +21,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from dip_tpu_torch.models.blocks import (Conv, TrainBatchNorm, act,
+from dip_tpu_torch.models.blocks import (Conv, TrainBatchNorm, act, check_conv_wgrad,
                                          concat_cropped, crop_to_min)
 from dip_tpu_torch.ops.resample import upsample
 from dip_tpu_torch.ops.up_conv import Up2, can_fuse_up2
@@ -43,8 +43,11 @@ class Skip(nn.Module):
     eligible decoder upsample -> 3x3 conv as the fused seam
     (ops/up_conv.py); seam_carry adds the decoder's skip-branch conv result
     in the seam kernel's epilogue (the JAX package's dispatch.seam_carry,
-    off by default there too). None of them changes a parameter or a
-    result beyond rounding; the seam rounds its operands to bf16.
+    off by default there too); conv_wgrad ('off' | '1x1' | '3x3' | 'all')
+    takes the weight gradients of the stride-1 3x3 and the 1x1 convs from
+    the Hopper kernels (the JAX package's DIP_PALLAS_WGRAD, off by default
+    there too). None of them changes a parameter or a result beyond
+    rounding; the seam rounds its operands to bf16.
     """
 
     def __init__(
@@ -68,6 +71,7 @@ class Skip(nn.Module):
         fold_bn: bool = True,
         up_conv: bool = True,
         seam_carry: bool = False,
+        conv_wgrad: str = "off",
     ):
         super().__init__()
         n = len(num_channels_down)
@@ -85,8 +89,11 @@ class Skip(nn.Module):
         self.fold_bn = fold_bn
         self.up_conv = up_conv
         self.seam_carry = seam_carry
-        down_modes = _per_scale(downsample_mode, n)
-        k_down = _per_scale(filter_size_down, n)
+        self.conv_wgrad = check_conv_wgrad(conv_wgrad)
+        self.down_modes = _per_scale(downsample_mode, n)
+        self.k_down = _per_scale(filter_size_down, n)
+        self.filter_skip_size = filter_skip_size
+        down_modes, k_down = self.down_modes, self.k_down
 
         self.convs = nn.ModuleList()
         self.bns = nn.ModuleList()
@@ -121,9 +128,10 @@ class Skip(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs, bns = iter(self.convs), iter(self.bns)
+        wgrad = check_conv_wgrad(self.conv_wgrad)
 
         def cba(h):
-            h = next(convs)(h, seam_carry=self.seam_carry)
+            h = next(convs)(h, seam_carry=self.seam_carry, conv_wgrad=wgrad)
             return act(next(bns)(h), self.act_fun)
 
         n = len(self.ch_skip)
@@ -151,11 +159,11 @@ class Skip(nn.Module):
             foldable = self.pad in ("reflection", "replication") or self.k_up[i] == 1
             if self.fold_bn and foldable:
                 u, s, t = next(bns)(u, as_affine=True)
-                u = act(next(bns)(next(convs)(u, s, t, self.seam_carry)), self.act_fun)
+                u = act(next(bns)(next(convs)(u, s, t, self.seam_carry, wgrad)), self.act_fun)
             else:
                 u = cba(next(bns)(u))
             if self.need1x1_up:
                 u = cba(u)
 
-        u = next(convs)(u)
+        u = next(convs)(u, conv_wgrad=wgrad)
         return torch.sigmoid(u) if self.need_sigmoid else u

@@ -1,1 +1,2 @@
-"""Tensor ops of the port; ops/hopper_up_conv.py holds the Hopper kernels."""
+"""Tensor ops of the port; the ops/hopper_*.py modules hold the Hopper
+kernels' wrappers and plain versions (sources in csrc/)."""

@@ -1,9 +1,10 @@
 """Build the package's CUDA sources at first use and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface, under `build/kernels/` at the
-root of the checkout. The library's name carries a hash of the sources and
-flags, so an edit never loads a stale binary. Nothing here runs at import
+Every `csrc/*.cu` file is compiled for Hopper (`sm_90a`) by an `nvcc` of
+its own, all started together, and the objects are linked into one shared
+library with a plain C interface, under `build/kernels/` at the root of the
+checkout. The library's name carries a hash of the sources and flags, so
+an edit never loads a stale binary. Nothing here runs at import
 time, and nothing falls back: a missing compiler or a failed build raises.
 """
 
@@ -19,8 +20,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: ctypes.CDLL | None = None
 build_log: str = ""  # nvcc's output of this process's build (ptxas lines)
@@ -53,6 +54,46 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdip_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _build(so: Path) -> str:
+    """Compile each source to an object, one nvcc per source, all running
+    at once, then link the objects into `so`. Returns nvcc's output;
+    raises, with that output, if a compile or the link fails."""
+    nvcc = _nvcc()
+    work = so.with_suffix(f".{os.getpid()}.d")
+    work.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    try:
+        for src in _sources():
+            obj = work / f"{src.stem}.o"
+            jobs.append((src.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, _, proc in jobs:
+            out, _ = proc.communicate(timeout=900)
+            logs.append(f"# {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, *GENCODE, "-shared", "-o", str(tmp),
+                               *(str(obj) for _, obj, _ in jobs)],
+                              capture_output=True, text=True, timeout=300)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(tmp, so)
+        return log
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, compiled on the first call of the process."""
     global _lib, build_log
@@ -60,23 +101,24 @@ def load() -> ctypes.CDLL:
         return _lib
     so = library_path()
     if not so.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, so)
+        build_log = _build(so)
     lib = ctypes.CDLL(str(so))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dip_up_conv_fwd.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 6 + [ptr]
     lib.dip_up_conv_dgrad.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
     lib.dip_up_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
     lib.dip_up_conv_wgrad_tiles.argtypes = [ctypes.POINTER(i32)] * 3
     lib.dip_downsample.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [ptr]
+    # x, out, n, h/2, w/2, c, x's 4 strides, in f32, out f32, stream
+    lib.dip_s2d_pack.argtypes = [ptr, ptr] + [i32] * 4 + [i64] * 4 + [i32] * 2 + [ptr]
+    # x, g, workspace, dW, n, h, w, hx, wx, ci, co, x's and g's 4 strides,
+    # ks, halo, splits, pixels per split, f32, stream
+    lib.dip_wgrad.argtypes = ([ptr] * 4 + [i32] * 7 + [i64] * 8 + [i32] * 3 + [i64, i32]
+                              + [ptr])
+    lib.dip_wgrad_tiles.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
     for fn in (lib.dip_up_conv_fwd, lib.dip_up_conv_dgrad, lib.dip_up_conv_wgrad,
-               lib.dip_up_conv_wgrad_tiles, lib.dip_downsample):
+               lib.dip_up_conv_wgrad_tiles, lib.dip_downsample, lib.dip_s2d_pack,
+               lib.dip_wgrad, lib.dip_wgrad_tiles):
         fn.restype = i32
     _lib = lib
     return lib
@@ -87,6 +129,17 @@ def stream() -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def on_cpu(**tensors) -> bool:
+    """True if every tensor lies on the CPU (the caller then runs its plain
+    version), False if all lie on one CUDA device (it launches its kernel);
+    raises on any other mix of devices."""
+    devs = {t.device for t in tensors.values()}
+    if len(devs) == 1 and next(iter(devs)).type in ("cpu", "cuda"):
+        return next(iter(devs)).type == "cpu"
+    raise ValueError(f"kernels need all tensors on one CUDA device (or all on the CPU): "
+                     f"{ {k: str(t.device) for k, t in tensors.items()} }")
 
 
 def raise_on(rc: int, what: str) -> None:

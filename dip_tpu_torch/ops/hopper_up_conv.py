@@ -10,6 +10,10 @@ Counterpart of dip_tpu/ops/pallas_up_conv.py. The kernels live in
   dgrad  dzq (N,h,w,4F) bf16, e          -> dxp (N,h+2,w+2,C)
   wgrad  xp, dzq                         -> de (3,3,C,4F)
 
+The backward's HR -> phase-major transform of the cotangent dz (with its
+bf16 cast) is K4, the packed space-to-depth kernel of ops/hopper_s2d.py:
+the JAX package's `seam_dz='pallas'` route, one pass over dz.
+
 Numerics follow the TPU kernels' mixed mode (pallas_up_conv._mx): the
 operands are rounded to bf16, every sum is f32, and results come back in
 xp's dtype. The plain versions below do exactly that in PyTorch (round,
@@ -29,7 +33,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from dip_tpu_torch.ops import _build
+from dip_tpu_torch.ops import _build, hopper_s2d
 
 LAUNCHES = {"fwd": 0, "fwd_carry": 0, "dgrad": 0, "wgrad": 0}
 _BF16 = torch.bfloat16
@@ -92,14 +96,9 @@ def wgrad_plain(xp: torch.Tensor, dzq: torch.Tensor) -> torch.Tensor:
 
 
 def _on_cpu(**tensors: torch.Tensor) -> bool:
-    """True if every tensor is on the CPU, False if all are on one CUDA
-    device; raises on anything else."""
-    devs = {t.device for t in tensors.values()}
-    if devs == {torch.device("cpu")}:
+    """_build.on_cpu, and on a CUDA device every tensor contiguous."""
+    if _build.on_cpu(**tensors):
         return True
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
-        raise ValueError(f"seam kernels need all tensors on one CUDA device "
-                         f"(or all on the CPU): { {k: str(t.device) for k, t in tensors.items()} }")
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -212,16 +211,16 @@ def wgrad(xp: torch.Tensor, dzq: torch.Tensor) -> torch.Tensor:
 
 def phase_major(dz: torch.Tensor) -> torch.Tensor:
     """HR cotangent (N,2h,2w,F) -> phase-major bf16 (N,h,w,4F), column
-    (p*2+q)*F+f (pallas_up_conv._vjp_bwd's 'xla' transform)."""
-    n, hh, ww, f = dz.shape
-    dzq = dz.to(_BF16).reshape(n, hh // 2, 2, ww // 2, 2, f)
-    return dzq.permute(0, 1, 3, 2, 4, 5).reshape(n, hh // 2, ww // 2, 4 * f).contiguous()
+    (p*2+q)*F+f: the plain version of the backward's K4 launch
+    (pallas_up_conv._vjp_bwd's 'xla' transform)."""
+    return hopper_s2d.s2d_pack_plain(dz, _BF16)
 
 
 class UpConv3x3(torch.autograd.Function):
     """Seam on the edge-padded LR input: xp (N,h+2,w+2,C), e (3,3,C,4F) ->
     interleaved HR (N,2h,2w,F), plus the carry-in if one is given;
-    backward runs dgrad and wgrad, and d(carry) = dz."""
+    backward packs dz phase-major in bf16 (K4), runs dgrad and wgrad, and
+    d(carry) = dz."""
 
     @staticmethod
     def forward(ctx, xp: torch.Tensor, e: torch.Tensor,
@@ -233,7 +232,7 @@ class UpConv3x3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dz: torch.Tensor):
         xp, e = ctx.saved_tensors
-        dzq = phase_major(dz)
+        dzq = hopper_s2d.s2d_pack(dz, _BF16)
         return (dgrad(dzq, e, xp.dtype), wgrad(xp, dzq).to(e.dtype),
                 dz if ctx.has_carry else None)
 

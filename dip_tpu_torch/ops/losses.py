@@ -1,5 +1,5 @@
 """Fit losses and image metrics (counterpart of dip_tpu/ops/losses.py's
-`mse`, `tv_loss`, `psnr` and `psnr_y`)."""
+`mse`, `masked_mse`, `tv_loss`, `psnr` and `psnr_y`)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,14 @@ from dip_tpu_torch.ops.color import rgb_to_ycbcr_y
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     d = pred - target
+    return torch.mean(d * d)
+
+
+def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """MSE over the masked pixels, normalised by the total pixel count and
+    not by the mask's population, as the reference's
+    `mse(out * mask, img * mask)`."""
+    d = (pred - target) * mask
     return torch.mean(d * d)
 
 

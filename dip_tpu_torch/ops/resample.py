@@ -46,6 +46,18 @@ def upsample(x: torch.Tensor, scale: int = 2, mode: str = "nearest") -> torch.Te
     return y.permute(0, 2, 3, 1)
 
 
+def avg_pool(x: torch.Tensor, window: int, stride: int | None = None) -> torch.Tensor:
+    """Mean over `window` x `window` NHWC windows, VALID."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, window if stride is None else stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int | None = None) -> torch.Tensor:
+    """Max over `window` x `window` NHWC windows, VALID."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, window if stride is None else stride)
+    return y.permute(0, 2, 3, 1)
+
+
 # -- kernel construction (host numpy) ---------------------------------------------
 
 

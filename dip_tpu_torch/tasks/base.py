@@ -48,9 +48,9 @@ def make_input(spec: TaskSpec, generator: torch.Generator,
 
 def run_task(spec: TaskSpec, seed: int, *, device: torch.device | str, callback=None):
     """Fit the task on `device` and return (output image NHWC, state, history).
-    z comes from a CPU generator seeded with `seed`, the weights from seed+1
-    and the jitter from seed+2, so z and the initial weights do not depend
-    on the device."""
+    z comes from a CPU generator seeded with `seed`, the weights from seed+1,
+    the input jitter from seed+2 and the weight jitter from seed+3, so z and
+    the initial weights do not depend on the device."""
     eng = Engine(spec.model, spec.loss_fn, spec.cfg, spec.metrics_fn, device=device)
     z = make_input(spec, torch.Generator().manual_seed(seed), eng.device)
     aux = to_device(spec.aux, eng.device)

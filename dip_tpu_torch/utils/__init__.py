@@ -1,1 +1,1 @@
-"""Helpers: the network input and image I/O."""
+"""Helpers: the network input, image I/O and the inpainting masks."""
