@@ -8,7 +8,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
   3. kernel parity: each seam kernel (fwd, fwd with the carry-in, dgrad,
      wgrad) against its plain PyTorch version at the five flagship seam
      shapes in bf16 and f32 and at one ragged shape, with times at the
-     flagship shapes; the downsample kernel against its plain version at
+     flagship shapes beside the plain version's and those of the one
+     PyTorch call that computes the same function (cuDNN's conv, transposed
+     conv and weight gradient, each first held to the plain version); the
+     forward and its carry-in also at seams that cut its tiles raggedly and
+     at the 'library' / restoration 'kate' seams (C, F = 16..128), timed
+     there; the downsample kernel against its plain version at
      the SR geometries (x4 and x8 at HR 384x576, a ragged batch, gauss12,
      box, preserve_size=False), with times; the s2d pack (bitwise) at the
      five 'kate' seam cotangents, NHWC and channel-planar, and ragged; the
@@ -34,8 +39,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      inpainting 'kate' fits (weight-gradient kernels and weight jitter
      on) under torch's sync debug mode, which raises on any call that
      waits for the device.
-The last three lines are the card line, a JSON object of the kernels, and
-{"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
+The last three lines are the card line, a JSON object of the kernels (each
+with its launches on a main path, error, times, and the bound of this
+run's shapes on an H100: bytes at 3.35 TB/s against operations at 989
+TFLOP/s bf16 or 67 TFLOP/s f32 FMA), and {"ok": true, "device": {...}}.
+Without a CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # max-normalised relative error max|kernel - plain| / max|plain|. f32 mode:
 # identical bf16-rounded operands, f32 sums in another order. bf16 mode:
@@ -54,10 +63,23 @@ import torch
 TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 FLAGSHIP_SEAMS = [(1, h, h, 128, 128) for h in (16, 32, 64, 128, 256)]
 RAGGED_SEAM = (2, 12, 20, 8, 16)
+# seams that cut the forward's tiles (8x16 pixels, 128 columns, 64-channel
+# chunks) raggedly: h and w off the pixel tile, C off the chunk and 4F off
+# the column tile, and C and 4F off 8 (the synchronous staging)
+FWD_RAGGED = [(1, 33, 47, 72, 40), (3, 9, 7, 24, 12), (2, 7, 9, 5, 3)]
+# the seams of inpainting 'library' and restoration 'kate' at 512^2 below
+# their 128-channel scales, (N, h, w, C, F)
+LIBRARY_SEAMS = [(1, 256, 256, 16, 16), (1, 128, 128, 32, 16), (1, 64, 64, 64, 32),
+                 (1, 32, 32, 128, 64)]
+# the H100 SXM's dense peaks (NVIDIA's data sheet): the least time of a
+# kernel is the larger of its bytes over the memory rate and its operations
+# over the rate of their type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 MAIN_STEPS = 30
 KERNELS = {
-    "fwd": ("dip_tpu_torch/csrc/up_conv.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
-    "fwd_carry": ("dip_tpu_torch/csrc/up_conv.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
+    "fwd": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
+    "fwd_carry": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
     "dgrad": ("dip_tpu_torch/csrc/up_conv.cu", "dip_tpu/ops/pallas_up_conv.py:307"),
     "wgrad": ("dip_tpu_torch/csrc/up_conv.cu", "dip_tpu/ops/pallas_up_conv.py:369"),
 }
@@ -148,13 +170,87 @@ def phase_build() -> None:
             log(f"[build] {line.strip()}")
 
 
+def bound(ops: float, peak: str, nbytes: float) -> tuple[float, str]:
+    """(least ms, what bounds it): `nbytes` moved once at the memory rate
+    against `ops` operations at the peak of type `peak`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[peak]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def seam_bound(name: str, n: int, h: int, w: int, c: int, f: int,
+               dtype: torch.dtype) -> tuple[float, str]:
+    """The bound of a seam kernel at (N, h, w, C, F): 2*N*h*w*9*C*4F
+    tensor-core operations (bf16 in both modes) against each input read and
+    each output written once, xp, out and de in `dtype`, dzq bf16."""
+    s = torch.finfo(dtype).bits // 8
+    xp = n * (h + 2) * (w + 2) * c * s
+    e = 9 * c * 4 * f * s
+    dzq = n * h * w * 4 * f * 2
+    z = n * 4 * h * w * f * s
+    nbytes = {"fwd": xp + e + z, "fwd_carry": xp + e + 2 * z, "dgrad": dzq + e + xp,
+              "wgrad": xp + dzq + e}[name]
+    return bound(2.0 * n * h * w * 9 * c * 4 * f, "bf16", nbytes)
+
+
+# -- library yardsticks: the one PyTorch call that computes each seam
+# kernel's function, timed beside it and used nowhere in the port. Their
+# inputs are prepared once, outside any timed region: the operands rounded
+# to bf16 as the seam's numerics do (a no-op in bf16), in the working dtype.
+
+def library_weights(e: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """e (3,3,C,4F) as (4F,C,3,3) conv weights: the forward's, output
+    channel f*4+p*2+q (pixel_shuffle's order), and e's own column order
+    (p*2+q)*F+f, which the phase-major dzq of dgrad and wgrad has."""
+    w_nat = e.permute(3, 2, 0, 1)
+    f4 = w_nat.shape[0]
+    w_fwd = w_nat.reshape(4, f4 // 4, *w_nat.shape[1:]).transpose(0, 1).reshape(w_nat.shape)
+    return w_fwd.contiguous(), w_nat.contiguous()
+
+
+def fwd_library(xp: torch.Tensor, w_fwd: torch.Tensor,
+                carry: torch.Tensor | None = None) -> torch.Tensor:
+    """K1 (K1c with `carry`): cuDNN's conv of xp's NCHW view (N,C,h+2,w+2),
+    then pixel_shuffle, the same phase -> HR interleave; NHWC view out."""
+    z = F.pixel_shuffle(F.conv2d(xp.permute(0, 3, 1, 2), w_fwd), 2).permute(0, 2, 3, 1)
+    return z if carry is None else z + carry
+
+
+def dgrad_library(dzq: torch.Tensor, w_nat: torch.Tensor) -> torch.Tensor:
+    """K2: the transposed conv of the phase-major dzq as NCHW, padding 0,
+    gives (N,C,h+2,w+2) = dxp; NHWC view out."""
+    return F.conv_transpose2d(dzq.permute(0, 3, 1, 2), w_nat).permute(0, 2, 3, 1)
+
+
+def wgrad_library(xp: torch.Tensor, dzq: torch.Tensor) -> torch.Tensor:
+    """K3: cuDNN's weight gradient of the conv xp -> dzq, as (3,3,C,4F)."""
+    size = (dzq.shape[3], xp.shape[3], 3, 3)
+    return torch.nn.grad.conv2d_weight(xp.permute(0, 3, 1, 2), size,
+                                       dzq.permute(0, 3, 1, 2)).permute(2, 3, 1, 0)
+
+
+def library_calls(xp, e, dzq, carry, dtype: torch.dtype) -> dict:
+    """Each seam kernel's yardstick as a closure over its prepared inputs."""
+    xr, er, dzr = (t.to(torch.bfloat16).to(dtype) for t in (xp, e, dzq))
+    w_fwd, w_nat = library_weights(er)
+    return {"fwd": lambda: fwd_library(xr, w_fwd),
+            "fwd_carry": lambda: fwd_library(xr, w_fwd, carry),
+            "dgrad": lambda: dgrad_library(dzr, w_nat),
+            "wgrad": lambda: wgrad_library(xr, dzr)}
+
+
 def phase_kernel_parity(dev: torch.device) -> dict:
+    from dip_tpu_torch.fit.engine import disable_tf32
     from dip_tpu_torch.ops import hopper_up_conv as H
 
+    disable_tf32()  # as the Engine: the f32 yardsticks and plain versions run true f32
     stats = {k: {"max_abs_err": 0.0} for k in KERNELS}
     gen = torch.Generator(device=dev).manual_seed(0)
+    # (shape, kernels held, timed): every kernel at the flagship and ragged
+    # seams, the forward alone at the seams that only it has changed for
+    cases = [(s, tuple(KERNELS), s != RAGGED_SEAM) for s in FLAGSHIP_SEAMS + [RAGGED_SEAM]]
+    cases += [(s, ("fwd", "fwd_carry"), s in LIBRARY_SEAMS) for s in FWD_RAGGED + LIBRARY_SEAMS]
     for dtype in (torch.bfloat16, torch.float32):
-        for n, h, w, c, f in FLAGSHIP_SEAMS + [RAGGED_SEAM]:
+        for (n, h, w, c, f), names, timed in cases:
             xp = torch.randn((n, h + 2, w + 2, c), generator=gen, device=dev).to(dtype)
             e = (torch.randn((3, 3, c, 4 * f), generator=gen, device=dev) * 0.05).to(dtype)
             dzq = torch.randn((n, h, w, 4 * f), generator=gen, device=dev).to(torch.bfloat16)
@@ -166,27 +262,37 @@ def phase_kernel_parity(dev: torch.device) -> dict:
                           lambda: H.dgrad_plain(dzq, e, dtype)),
                 "wgrad": (lambda: H.wgrad(xp, dzq), lambda: H.wgrad_plain(xp, dzq)),
             }
-            for name, (kern, plain) in pairs.items():
-                got, want = kern(), plain()
+            library = library_calls(xp, e, dzq, carry, dtype)
+            for name in names:
+                kern, plain = pairs[name]
+                got, want, lib = kern(), plain(), library[name]()
                 torch.cuda.synchronize()
-                if got.shape != want.shape or got.dtype != want.dtype:
-                    raise RuntimeError(f"{name} {tuple(got.shape)} {got.dtype} vs "
-                                       f"{tuple(want.shape)} {want.dtype}")
+                for who, out in (("kernel", got), ("library", lib)):
+                    if out.shape != want.shape or out.dtype != want.dtype:
+                        raise RuntimeError(f"{name} {who} {tuple(out.shape)} {out.dtype} vs "
+                                           f"{tuple(want.shape)} {want.dtype}")
                 rel, abs_err = rel_err(got, want)
+                lib_rel, _ = rel_err(lib, want)
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], abs_err)
                 line = (f"[parity] {name:9s} {str(dtype)[6:]:8s} N={n} h={h} w={w} C={c} "
-                        f"F={f}: rel {rel:.2e} abs {abs_err:.2e}")
-                if (n, h, w, c, f) != RAGGED_SEAM:
+                        f"F={f}: rel {rel:.2e} abs {abs_err:.2e}, library rel {lib_rel:.2e}")
+                if timed:
                     reps = 20 if h <= 64 else 5
                     ms, plain_ms = time_ms(kern, reps), time_ms(plain, reps)
-                    line += f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                    if h == 256 and dtype == torch.bfloat16:
-                        stats[name].update(ms=ms, plain_ms=plain_ms)
+                    lib_ms = time_ms(library[name], reps)
+                    bound_ms, by = seam_bound(name, n, h, w, c, f, dtype)
+                    line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                             f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+                    if (n, h, w, c, f) == FLAGSHIP_SEAMS[-1] and dtype == torch.bfloat16:
+                        stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                           bound_ms=bound_ms, bound_by=by)
                 log(line)
-                if rel > TOL[dtype]:
-                    raise RuntimeError(f"{name} disagrees with its plain version: "
-                                       f"rel {rel:.3e} > {TOL[dtype]}")
-            del xp, e, dzq, carry, pairs
+                if rel > TOL[dtype] or lib_rel > TOL[dtype]:
+                    raise RuntimeError(f"{name} or its library yardstick disagrees with the "
+                                       f"plain version: rel {rel:.3e}, {lib_rel:.3e} > "
+                                       f"{TOL[dtype]}")
+                del got, want, lib
+            del xp, e, dzq, carry, pairs, library
     return stats
 
 
@@ -218,7 +324,14 @@ def phase_downsample_parity(dev: torch.device) -> dict:
         stats["max_abs_err"] = max(stats["max_abs_err"], abs_err)
         stats["max_rel_err"] = max(stats["max_rel_err"], rel)
         if (factor, ktype, preserve, shape[0]) == (4, "lanczos2", True, 1):
-            stats.update(ms=ms, plain_ms=plain_ms)
+            # an H pass of K taps over every input column of each output
+            # row, then a W pass of K taps: f32 FMA
+            n, _, w_in, c = shape
+            ops = 2.0 * taps.shape[0] * n * h_out * c * (w_in + w_out)
+            bound_ms, by = bound(ops, "f32", 4 * (x.numel() + got.numel()))
+            # no one PyTorch call: a strided conv needs the replication pad first
+            stats.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                         bound_by=by)
         log(f"[parity] downsample {tuple(shape)} x{factor} {ktype} phase {phase} "
             f"preserve {preserve} -> {tuple(got.shape)} K={taps.shape[0]} p={pad} "
             f"tile {HR.tile_plan(taps.shape[0], factor, shape[3])[:2]}: rel {rel:.2e} "
@@ -266,7 +379,11 @@ def phase_s2d_parity(dev: torch.device) -> dict:
             plain_ms = time_ms(lambda: S.s2d_pack_plain(dz, torch.bfloat16), reps)
             line += f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             if shape == KATE_DZ[-1] and dtype == torch.bfloat16 and layout == "nhwc":
-                stats.update(ms=ms, plain_ms=plain_ms)
+                # a pure permutation: bytes only. pixel_unshuffle orders the
+                # channels (c, p, q), not (p, q, c), so no one call computes it
+                bound_ms, by = bound(0.0, "bf16", 2 * dz.numel() * 2)
+                stats.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                             bound_by=by)
         log(line)
         if not torch.equal(got, want):
             raise RuntimeError(f"s2d_pack is not bitwise its plain version ({abs_err:.3e})")
@@ -317,7 +434,11 @@ def phase_wgrad_parity(dev: torch.device) -> dict:
                          f"cudnn {dnn_ms:.4f} ms")
                 if (dtype, layout, xs[1], xs[3], gs[3]) == (torch.bfloat16, "nhwc", 514 if ks == 3
                                                             else 512, 128, 128):
-                    stats[name].update(ms=ms, plain_ms=plain_ms)
+                    ops = 2.0 * gs[0] * gs[1] * gs[2] * ks * ks * xs[3] * gs[3]
+                    nbytes = 2 * (x.numel() + g.numel()) + 4 * got.numel()  # dW in f32
+                    bound_ms, by = bound(ops, "bf16", nbytes)
+                    stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=dnn_ms,
+                                       bound_ms=bound_ms, bound_by=by)
             log(line)
             if rel > WGRAD_TOL[dtype]:
                 raise RuntimeError(f"{name} disagrees with its plain version: "
@@ -535,33 +656,14 @@ def phase_sr_path(dev: torch.device, card: str) -> dict:
     return total
 
 
-def synthetic_inpaint(size: int = FIT_SIZE) -> tuple[np.ndarray, np.ndarray]:
-    """(image, mask): a (1, size, size, 3) smooth image with texture, made
-    with numpy, and a text-like mask of its own: rows of small zeroed
-    blocks, as a line of glyphs would be (Pillow, which draws the recipe's
-    text mask, is not needed here; the CPU tests cover the text mask)."""
-    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
-    img = np.stack([np.sin(xx / 21) * np.cos(yy / 29) * 0.5 + 0.5,
-                    np.cos((xx - yy) / 17) * 0.4 + 0.5,
-                    np.sin(xx / 7) * np.sin(yy / 9) * 0.2 + (xx + yy) / (4 * size) + 0.3],
-                   axis=-1)
-    img = np.clip(img + np.random.default_rng(1).random(img.shape) * 0.05, 0, 1)
-    mask = np.ones((size, size, 3), np.float32)
-    rng = np.random.default_rng(2)
-    for y0 in range(size // 8, size - size // 8, size // 8):
-        for x0 in range(size // 16, size - size // 16, 14):
-            if rng.random() < 0.7:
-                mask[y0:y0 + 12, x0:x0 + 3 + int(rng.integers(0, 8))] = 0
-    return img[None].astype(np.float32), mask[None]
-
-
 def _masked_spec(task: str, preset: str, cd: str | None, wgrad: str, param_noise=None):
     """A 30-step inpainting or restoration spec on the synthetic image,
     with its mask (restoration: the Bernoulli mask of the preset's pixel
     fraction), conv_wgrad and, if given, param_noise."""
+    from dip_tpu_torch.bench import synthetic_inpaint
     from dip_tpu_torch.tasks import inpaint, restore
 
-    img, mask = synthetic_inpaint()
+    img, mask = synthetic_inpaint(FIT_SIZE)
     if task == "inpaint":
         spec = inpaint.task(img * mask, mask, preset, gt=img, num_iter=MAIN_STEPS)
     else:
@@ -649,7 +751,8 @@ def phase_steps_without_sync(dev: torch.device) -> None:
 def _entry(name: str, src_rep: tuple[str, str], launches: int, stats: dict) -> dict:
     return {"name": name, "route": "cuda", "source": src_rep[0], "replaces": src_rep[1],
             "launches": launches, "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
-            "plain_ms": stats["plain_ms"]}
+            "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
+            "bound_by": stats["bound_by"], "library_ms": stats["library_ms"]}
 
 
 def main() -> int:

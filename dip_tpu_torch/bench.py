@@ -10,6 +10,11 @@ card it raises.
 
     python -m dip_tpu_torch.bench [--size 512] [--iters 100]
     python -m dip_tpu_torch.bench --profile 5   # kernel table per dtype
+    python -m dip_tpu_torch.bench --profile 5 --fit kate
+
+`--fit kate` profiles inpainting 'kate' (128-channel skips, nearest up,
+masked MSE) on a synthetic image and mask of the same size in place of the
+flagship.
 """
 
 from __future__ import annotations
@@ -24,6 +29,10 @@ import numpy as np
 import torch
 
 REFERENCE_GPU_ESTIMATE_ITERS_PER_SEC = 10.0
+# the kernels of dip_tpu_torch/csrc, as the profiler names them
+PORT_KERNELS = ("up_conv_fwd_mma_kernel", "up_conv_dgrad_kernel", "up_conv_wgrad_kernel",
+                "up_conv_wgrad_reduce_kernel", "s2d_pack_kernel", "wgrad_bf16_kernel",
+                "wgrad_f32_kernel", "wgrad_reduce_kernel", "downsample_kernel")
 _BASELINE = Path(__file__).resolve().parents[1] / "results" / "torch_baseline.json"
 
 
@@ -49,6 +58,46 @@ def synthetic_noisy(size: int) -> tuple[np.ndarray, np.ndarray]:
                       (xx + yy) / (2 * size)], axis=-1)
     noisy = np.clip(clean + rng.normal(scale=25 / 255.0, size=clean.shape), 0, 1)
     return clean[None].astype(np.float32), noisy[None].astype(np.float32)
+
+
+def synthetic_inpaint(size: int) -> tuple[np.ndarray, np.ndarray]:
+    """(image, mask): a (1, size, size, 3) smooth image with texture, made
+    with numpy, and a text-like mask of its own: rows of small zeroed
+    blocks, as a line of glyphs would be (Pillow, which draws the recipe's
+    text mask, is not needed here; the CPU tests cover the text mask)."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    img = np.stack([np.sin(xx / 21) * np.cos(yy / 29) * 0.5 + 0.5,
+                    np.cos((xx - yy) / 17) * 0.4 + 0.5,
+                    np.sin(xx / 7) * np.sin(yy / 9) * 0.2 + (xx + yy) / (4 * size) + 0.3],
+                   axis=-1)
+    img = np.clip(img + np.random.default_rng(1).random(img.shape) * 0.05, 0, 1)
+    mask = np.ones((size, size, 3), np.float32)
+    rng = np.random.default_rng(2)
+    for y0 in range(size // 8, size - size // 8, size // 8):
+        for x0 in range(size // 16, size - size // 16, 14):
+            if rng.random() < 0.7:
+                mask[y0:y0 + 12, x0:x0 + 3 + int(rng.integers(0, 8))] = 0
+    return img[None].astype(np.float32), mask[None]
+
+
+def _kate(size: int, compute_dtype: str | None, device: str):
+    """(engine, state, aux) of inpainting 'kate' on a CUDA device."""
+    import dataclasses
+
+    from dip_tpu_torch.fit.engine import Engine, resolve_device
+    from dip_tpu_torch.tasks import inpaint
+    from dip_tpu_torch.tasks.base import make_input, to_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("the bench measures a CUDA device")
+    img, mask = synthetic_inpaint(size)
+    spec = inpaint.task(img * mask, mask, "kate", gt=img)
+    cfg = dataclasses.replace(spec.cfg, compute_dtype=compute_dtype)
+    eng = Engine(spec.model, spec.loss_fn, cfg, spec.metrics_fn, device=dev)
+    state = eng.init_state(0, make_input(spec, torch.Generator().manual_seed(0), dev),
+                           spec.extra_params)
+    return eng, state, to_device(spec.aux, dev)
 
 
 def _flagship(size: int, iters: int, compute_dtype: str | None, device: str):
@@ -121,13 +170,18 @@ def run_full(size: int = 512, iters: int = 100, print_json: bool = True) -> dict
 
 
 def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
-            device: str = "cuda", rows: int = 30) -> dict:
-    """torch.profiler over `steps` warm steps: prints the kernels by device
-    time and returns the window's wall time, summed kernel time and the
-    device's idle share (1 - kernel time / wall time)."""
+            device: str = "cuda", rows: int = 30, fit: str = "flagship") -> dict:
+    """torch.profiler over `steps` warm steps of the flagship (or of
+    inpainting 'kate'): prints the kernels by device time, then each of the
+    port's own kernels with its ms and launches a step, and returns the
+    window's wall time, summed kernel time, the device's idle share
+    (1 - kernel time / wall time) and the port's kernels."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    eng, state, target = _flagship(size, steps, compute_dtype, device)
+    if fit == "kate":
+        eng, state, target = _kate(size, compute_dtype, device)
+    else:
+        eng, state, target = _flagship(size, steps, compute_dtype, device)
     for _ in range(10):
         eng.step(state, target)
     torch.cuda.synchronize()
@@ -141,13 +195,21 @@ def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
     kernel_us = sum(e.self_device_time_total for e in avgs
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     tag = compute_dtype or "float32"
-    print(f"# profile {tag}: {steps} steps, wall {wall * 1e3 / steps:.2f} ms/step, "
+    print(f"# profile {fit} {tag}: {steps} steps, wall {wall * 1e3 / steps:.2f} ms/step, "
           f"kernels {kernel_us / 1e3 / steps:.2f} ms/step, device idle "
           f"{1 - kernel_us / 1e6 / wall:.3f} | {card_line()} | {eng.tf32}", flush=True)
     print(avgs.table(sort_by="self_device_time_total", row_limit=rows), flush=True)
-    return {"dtype": tag, "wall_ms_per_step": wall * 1e3 / steps,
+    ours: dict[str, list[float]] = {}  # name: [ms, launches] a step, over template instances
+    for e in avgs:
+        name = next((k for k in PORT_KERNELS if f"::{k}<" in e.key or f"::{k}(" in e.key), None)
+        if name is not None and e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = ours.setdefault(name, [0.0, 0.0])
+            ours[name] = [ms + e.self_device_time_total / 1e3 / steps, n + e.count / steps]
+    print(f"# port kernels {fit} {tag} (ms, launches a step): " + ", ".join(
+        f"{k} {ms:.4f} ({n:g})" for k, (ms, n) in ours.items()), flush=True)
+    return {"fit": fit, "dtype": tag, "wall_ms_per_step": wall * 1e3 / steps,
             "kernel_ms_per_step": kernel_us / 1e3 / steps,
-            "device_idle": 1 - kernel_us / 1e6 / wall}
+            "device_idle": 1 - kernel_us / 1e6 / wall, "port_kernels": ours}
 
 
 def main() -> None:
@@ -156,10 +218,12 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="instead of timing, profile STEPS steps per dtype")
+    ap.add_argument("--fit", choices=("flagship", "kate"), default="flagship",
+                    help="the fit --profile runs")
     args = ap.parse_args()
     if args.profile:
         for cd in ("bfloat16", None):
-            profile(args.size, args.profile, cd)
+            profile(args.size, args.profile, cd, fit=args.fit)
     else:
         run_full(args.size, args.iters)
 

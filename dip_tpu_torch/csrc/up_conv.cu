@@ -1,16 +1,16 @@
-// Hopper kernels of the fused 2x-upsample -> 3x3-conv decoder seam.
+// Hopper kernels of the fused 2x-upsample -> 3x3-conv decoder seam's
+// backward; the forward (with its carry-in) is up_conv_fwd.cu's.
 //
-// Three kernels, bound through a plain C interface (ctypes) by
+// Two kernels, bound through a plain C interface (ctypes) by
 // dip_tpu_torch/ops/hopper_up_conv.py, which also holds their plain
 // PyTorch versions:
 //
-//   fwd    xp (N,h+2,w+2,C) , e (3,3,C,4F)  -> z   (N,2h,2w,F)  [+ carry]
 //   dgrad  dzq (N,h,w,4F)   , e (3,3,C,4F)  -> dxp (N,h+2,w+2,C)
 //   wgrad  xp (N,h+2,w+2,C) , dzq (N,h,w,4F) -> de (3,3,C,4F)
 //
 // xp is the edge-padded low-resolution input, e the phase-folded effective
 // kernel whose column (p*2+q)*F+f holds output phase (p, q) of channel f,
-// and dzq the output cotangent in phase-major form. All three are implicit
+// and dzq the output cotangent in phase-major form. Both are implicit
 // GEMMs over 9 shifted taps. Operands enter the tensor cores as bf16 and
 // every sum is kept in f32: f32 inputs are rounded to bf16 on their way
 // into shared memory (the "mixed" f32 mode), bf16 inputs pass unchanged,
@@ -31,7 +31,7 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-// -- tap kernels (fwd and dgrad) ---------------------------------------------
+// -- dgrad -------------------------------------------------------------------
 // A block owns TH x TW output pixels and NT output columns. Warp r owns
 // pixel row r: its 16 pixels are one WMMA M-fragment, so for every tap the
 // A operand is a plain row-major (16 x KC) slice of the staged halo tile.
@@ -60,17 +60,8 @@ constexpr int W_NFRAG = WK / 16;
 constexpr size_t kWgradSmem =
     (size_t)WP * WC * sizeof(bf16) + (size_t)WP * WK * sizeof(bf16);
 
-__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16(v); }
-__device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(bf16* p, float v) { *p = __float2bfloat16(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-// v rounded to the type of the (unused) pointer, back in f32
-__device__ __forceinline__ float rounded(float v, const float*) { return v; }
-__device__ __forceinline__ float rounded(float v, const bf16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // Stage src[0..valid) as 8 bf16 at dst (16-byte aligned shared memory),
 // zero-filling past `valid`; one 16-byte load when all 8 are valid and src
@@ -95,92 +86,6 @@ __device__ __forceinline__ void stage8(const float* src, int valid, bf16* dst) {
   alignas(16) bf16 packed[8];
   for (int t = 0; t < 8; ++t) packed[t] = __float2bfloat16(v[t]);
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(packed);
-}
-
-// Replaces _fwd_kernel (dip_tpu/ops/pallas_up_conv.py:171, launched at :233).
-// Bound: tensor-core FLOPs at the flagship top seam (2*N*h*w*9*C*4F =
-// 77 GFLOP at h=w=256, C=F=128) against one read of xp and one write of the
-// high-resolution output. Design: the 9-tap sum stays in registers (WMMA
-// accumulators), so the phase-major product never reaches device memory;
-// the epilogue writes out[2r+p, 2s+q, f] straight from shared memory, and
-// the halo comes from xp's own two pad rows and columns, masked at the
-// ragged edge, so any N, h, w, C and F are accepted.
-// kCarry (K1c, the carry-in of up2_conv3x3_pallas_carry, :444-463): the
-// epilogue adds carry[out index] to the result rounded to T, in T, as the
-// TPU kernel's `z + carry` in the output dtype (:183-187); the decoder's
-// skip-branch result then needs no separate full-resolution add. A template
-// parameter, so the plain forward's code is unchanged.
-template <typename T, bool kCarry>
-__global__ void __launch_bounds__(TAP_THREADS)
-up_conv_fwd_kernel(const T* __restrict__ xp, const bf16* __restrict__ e,
-                   const T* __restrict__ carry, T* __restrict__ out, int h, int w, int c,
-                   int f, int tiles_w) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // [HALO][KC]
-  bf16* es = xs + HALO * KC;                  // [9][KC][NT]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = (blockIdx.x / tiles_w) * TH;
-  const int s0 = (blockIdx.x % tiles_w) * TW;
-  const int n0 = blockIdx.y * NT;
-  const int b = blockIdx.z;
-  const int hp = h + 2, wp = w + 2, f4 = 4 * f;
-  const T* xb = xp + (size_t)b * hp * wp * c;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NFRAG];
-#pragma unroll
-  for (int j = 0; j < NFRAG; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  for (int c0 = 0; c0 < c; c0 += KC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < HALO * KC; i += TAP_THREADS) {
-      const int k = i % KC, px = i / KC;
-      const int rr = r0 + px / (TW + 2), cc = s0 + px % (TW + 2), ch = c0 + k;
-      bf16 v = __float2bfloat16(0.0f);
-      if (rr < hp && cc < wp && ch < c) v = to_bf16(xb[((size_t)rr * wp + cc) * c + ch]);
-      xs[i] = v;
-    }
-    for (int i = threadIdx.x; i < 9 * KC * NT; i += TAP_THREADS) {
-      const int nn = i % NT, k = (i / NT) % KC, tap = i / (NT * KC);
-      const int ch = c0 + k, col = n0 + nn;
-      bf16 v = __float2bfloat16(0.0f);
-      if (ch < c && col < f4) v = e[((size_t)tap * c + ch) * f4 + col];
-      es[i] = v;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int d = tap / 3, g = tap % 3;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, xs + ((warp + d) * (TW + 2) + g) * KC, KC);
-#pragma unroll
-      for (int j = 0; j < NFRAG; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-        wmma::load_matrix_sync(bm, es + tap * KC * NT + j * 16, NT);
-        wmma::mma_sync(acc[j], a, bm, acc[j]);
-      }
-    }
-  }
-
-  __syncthreads();  // the epilogue buffer overlays the staging buffers
-  float* epi = reinterpret_cast<float*>(smem) + warp * 16 * EPI_LD;
-#pragma unroll
-  for (int j = 0; j < NFRAG; ++j)
-    wmma::store_matrix_sync(epi + j * 16, acc[j], EPI_LD, wmma::mem_row_major);
-  __syncwarp();
-  const int r = r0 + warp;
-  if (r >= h) return;
-  const size_t img = (size_t)b * (2 * h) * (2 * w) * f;
-  for (int i = lane; i < 16 * NT; i += 32) {
-    const int px = i / NT, nn = i % NT;
-    const int s = s0 + px, col = n0 + nn;
-    if (s >= w || col >= f4) continue;
-    const int pq = col / f, ff = col % f;
-    const int p = pq >> 1, q = pq & 1;
-    const size_t o = img + ((size_t)(2 * r + p) * (2 * w) + 2 * s + q) * f + ff;
-    float v = epi[px * EPI_LD + nn];
-    if (kCarry) v = rounded(v, carry) + to_f32(carry[o]);
-    store_as(out + o, v);
-  }
 }
 
 // Replaces _dgrad_kernel (dip_tpu/ops/pallas_up_conv.py:252, launched at
@@ -356,21 +261,6 @@ __global__ void up_conv_wgrad_reduce_kernel(const float* __restrict__ ws, T* __r
   store_as(de + idx, s);
 }
 
-template <typename T, bool kCarry>
-int launch_fwd(const void* xp, const void* e, const void* carry, void* out, int n, int h,
-               int w, int c, int f, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(up_conv_fwd_kernel<T, kCarry>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kTapSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_w = (w + TW - 1) / TW, tiles_h = (h + TH - 1) / TH;
-  dim3 grid(tiles_w * tiles_h, (4 * f + NT - 1) / NT, n);
-  up_conv_fwd_kernel<T, kCarry><<<grid, TAP_THREADS, kTapSmem, st>>>(
-      static_cast<const T*>(xp), static_cast<const bf16*>(e), static_cast<const T*>(carry),
-      static_cast<T*>(out), h, w, c, f, tiles_w);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int launch_dgrad(const void* dz, const void* e, void* dxp, int n, int h, int w, int c,
                  int f, cudaStream_t st) {
@@ -408,20 +298,8 @@ int launch_wgrad(const void* xp, const void* dz, void* ws, void* de, int n, int 
 // -- C interface ---------------------------------------------------------------
 // Each entry point launches on `stream`, does not synchronise, allocates
 // nothing, and returns cudaGetLastError() (0 on success). `x_is_f32` selects
-// float (else bf16) for xp and for the output of fwd, dgrad and wgrad; e and
+// float (else bf16) for xp and for the output of dgrad and wgrad; e and
 // dzq are always bf16.
-
-// `carry` is null, or (N,2h,2w,F) in xp's dtype, added to the output.
-extern "C" int dip_up_conv_fwd(const void* xp, const void* e, const void* carry, void* out,
-                               int n, int h, int w, int c, int f, int x_is_f32,
-                               void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (carry != nullptr)
-    return x_is_f32 ? launch_fwd<float, true>(xp, e, carry, out, n, h, w, c, f, st)
-                    : launch_fwd<bf16, true>(xp, e, carry, out, n, h, w, c, f, st);
-  return x_is_f32 ? launch_fwd<float, false>(xp, e, carry, out, n, h, w, c, f, st)
-                  : launch_fwd<bf16, false>(xp, e, carry, out, n, h, w, c, f, st);
-}
 
 extern "C" int dip_up_conv_dgrad(const void* dzq, const void* e, void* dxp, int n, int h,
                                  int w, int c, int f, int x_is_f32, void* stream) {

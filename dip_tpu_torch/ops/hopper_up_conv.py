@@ -2,7 +2,9 @@
 versions, and the autograd.Function that joins them.
 
 Counterpart of dip_tpu/ops/pallas_up_conv.py. The kernels live in
-`csrc/up_conv.cu` (built at first use by ops/_build.py):
+`csrc/up_conv_fwd.cu` (fwd, an mma.sync implicit GEMM with a cp.async
+pipeline) and `csrc/up_conv.cu` (dgrad, wgrad), built at first use by
+ops/_build.py:
 
   fwd    xp (N,h+2,w+2,C), e (3,3,C,4F)  -> z (N,2h,2w,F), phase -> HR
          interleave out[2r+p, 2s+q, f] = acc[r, s, (p*2+q)*F + f], plus an
@@ -135,10 +137,12 @@ def fwd(xp: torch.Tensor, e: torch.Tensor,
         tensors["carry"] = carry
     if _on_cpu(**tensors):
         return fwd_plain(xp, e, carry)
-    eb = e.to(_BF16)  # operands are bf16 in both modes (as _fwd's _mx(e))
+    # operands are bf16 in both modes (as _fwd's _mx): an f32 xp is rounded
+    # once here, so one bf16 main loop serves both; out and carry keep xp's dtype
+    xb, eb = xp.to(_BF16), e.to(_BF16)
     out = torch.empty((n, 2 * h, 2 * w, f), dtype=xp.dtype, device=xp.device)
     rc = _build.load().dip_up_conv_fwd(
-        xp.data_ptr(), eb.data_ptr(), None if carry is None else carry.data_ptr(),
+        xb.data_ptr(), eb.data_ptr(), None if carry is None else carry.data_ptr(),
         out.data_ptr(), n, h, w, c, f, int(xp.dtype == torch.float32), _build.stream())
     _build.raise_on(rc, "seam fwd")
     LAUNCHES["fwd" if carry is None else "fwd_carry"] += 1

@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from chip_smoke import TOL as CARD_TOL, library_calls, seam_bound  # noqa: E402
 from dip_tpu_torch.ops import hopper_up_conv as H  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -181,3 +182,40 @@ def test_kernels_match_plain_versions_on_card():
 
     stats = phase_kernel_parity(torch.device("cuda", 0))
     assert set(stats) == {"fwd", "fwd_carry", "dgrad", "wgrad"}
+
+
+# (N, h, w, C, F): C and 4F off multiples of 8, and N = 2
+LIBRARY_SEAMS = [(1, 4, 6, 8, 4), (2, 5, 3, 5, 3), (2, 6, 4, 12, 5)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seam", LIBRARY_SEAMS)
+@pytest.mark.parametrize("name", ["fwd", "fwd_carry", "dgrad", "wgrad"])
+def test_library_yardsticks_match_plain_versions(name, seam, dtype):
+    """chip_smoke.py's library yardsticks (cuDNN's conv + pixel_shuffle, its
+    transposed conv and its weight gradient on the card) compute each seam
+    kernel's function: against the plain versions on CPU tensors, at the
+    tolerance phase 3 holds them to."""
+    n, h, w, c, f = seam
+    t = getattr(torch, dtype)
+    rng = np.random.default_rng(sum(seam))
+    xp = torch.from_numpy(rng.normal(size=(n, h + 2, w + 2, c)).astype(np.float32)).to(t)
+    e = torch.from_numpy(rng.normal(size=(3, 3, c, 4 * f)).astype(np.float32) * 0.1).to(t)
+    dzq = torch.from_numpy(rng.normal(size=(n, h, w, 4 * f)).astype(np.float32)).to(torch.bfloat16)
+    carry = torch.from_numpy(rng.normal(size=(n, 2 * h, 2 * w, f)).astype(np.float32)).to(t)
+    want = {"fwd": lambda: H.fwd_plain(xp, e), "fwd_carry": lambda: H.fwd_plain(xp, e, carry),
+            "dgrad": lambda: H.dgrad_plain(dzq, e, t),
+            "wgrad": lambda: H.wgrad_plain(xp, dzq)}[name]()
+    got = library_calls(xp, e, dzq, carry, t)[name]()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert _rel(got.float().numpy(), want.float().numpy()) < CARD_TOL[t]
+
+
+def test_seam_bounds_at_the_top_flagship_seam():
+    """Phase 3's bounds at (1, 256, 256, 128, 128) bf16: 77.3 GFLOP at 989
+    TFLOP/s for every seam kernel, against 85 MB (152 MB with the carry)."""
+    for name in ("fwd", "fwd_carry", "dgrad", "wgrad"):
+        ms, by = seam_bound(name, 1, 256, 256, 128, 128, torch.bfloat16)
+        assert by == "operations" and ms == pytest.approx(77.3e9 / 989e12 * 1e3, rel=1e-3)
+    ms, by = seam_bound("fwd", 1, 16, 16, 8, 2, torch.float32)
+    assert by == "bytes"
