@@ -11,9 +11,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      flagship shapes beside the plain version's and those of the one
      PyTorch call that computes the same function (cuDNN's conv, transposed
      conv and weight gradient, each first held to the plain version); the
-     forward and its carry-in also at seams that cut its tiles raggedly and
-     at the 'library' / restoration 'kate' seams (C, F = 16..128), timed
-     there; the downsample kernel against its plain version at
+     forward, its carry-in and the weight gradient also at seams that cut
+     their tiles raggedly and at the 'library' / restoration 'kate' seams
+     (C, F = 16..128), timed there; the weight gradient launched twice at
+     every seam, the two results bitwise equal; the downsample kernel
+     against its plain version at
      the SR geometries (x4 and x8 at HR 384x576, a ragged batch, gauss12,
      box, preserve_size=False), with times; the s2d pack (bitwise) at the
      five 'kate' seam cotangents, NHWC and channel-planar, and ragged; the
@@ -63,9 +65,10 @@ import torch.nn.functional as F
 TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 FLAGSHIP_SEAMS = [(1, h, h, 128, 128) for h in (16, 32, 64, 128, 256)]
 RAGGED_SEAM = (2, 12, 20, 8, 16)
-# seams that cut the forward's tiles (8x16 pixels, 128 columns, 64-channel
-# chunks) raggedly: h and w off the pixel tile, C off the chunk and 4F off
-# the column tile, and C and 4F off 8 (the synchronous staging)
+# seams that cut the forward's and the weight gradient's tiles (8x16
+# pixels, 128 columns, 64 channels) raggedly: h and w off the pixel tile, C
+# off the channel tile and 4F off the column tile, and C and 4F off 8 (the
+# synchronous staging)
 FWD_RAGGED = [(1, 33, 47, 72, 40), (3, 9, 7, 24, 12), (2, 7, 9, 5, 3)]
 # the seams of inpainting 'library' and restoration 'kate' at 512^2 below
 # their 128-channel scales, (N, h, w, C, F)
@@ -81,7 +84,7 @@ KERNELS = {
     "fwd": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
     "fwd_carry": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
     "dgrad": ("dip_tpu_torch/csrc/up_conv.cu", "dip_tpu/ops/pallas_up_conv.py:307"),
-    "wgrad": ("dip_tpu_torch/csrc/up_conv.cu", "dip_tpu/ops/pallas_up_conv.py:369"),
+    "wgrad": ("dip_tpu_torch/csrc/up_conv_wgrad.cu", "dip_tpu/ops/pallas_up_conv.py:369"),
 }
 DOWNSAMPLE = ("dip_tpu_torch/csrc/resample.cu", "dip_tpu/ops/pallas_resample.py:119")
 S2D = ("dip_tpu_torch/csrc/s2d.cu", "dip_tpu/ops/pallas_s2d.py:101")
@@ -166,7 +169,7 @@ def phase_build() -> None:
     _build.load()
     log(f"[build] {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
 
@@ -238,6 +241,15 @@ def library_calls(xp, e, dzq, carry, dtype: torch.dtype) -> dict:
             "wgrad": lambda: wgrad_library(xr, dzr)}
 
 
+def seam_calls(H, xp, e, dzq, carry, dtype: torch.dtype) -> dict:
+    """Each seam kernel's (kernel, plain version) calls on these inputs,
+    through the seam module `H` (ops/hopper_up_conv of some checkout)."""
+    return {"fwd": (lambda: H.fwd(xp, e), lambda: H.fwd_plain(xp, e)),
+            "fwd_carry": (lambda: H.fwd(xp, e, carry), lambda: H.fwd_plain(xp, e, carry)),
+            "dgrad": (lambda: H.dgrad(dzq, e, dtype), lambda: H.dgrad_plain(dzq, e, dtype)),
+            "wgrad": (lambda: H.wgrad(xp, dzq), lambda: H.wgrad_plain(xp, dzq))}
+
+
 def phase_kernel_parity(dev: torch.device) -> dict:
     from dip_tpu_torch.fit.engine import disable_tf32
     from dip_tpu_torch.ops import hopper_up_conv as H
@@ -246,22 +258,18 @@ def phase_kernel_parity(dev: torch.device) -> dict:
     stats = {k: {"max_abs_err": 0.0} for k in KERNELS}
     gen = torch.Generator(device=dev).manual_seed(0)
     # (shape, kernels held, timed): every kernel at the flagship and ragged
-    # seams, the forward alone at the seams that only it has changed for
+    # seams, the redesigned ones (forward and weight gradient) also at the
+    # seams that cut their tiles and at the 'library' seams
     cases = [(s, tuple(KERNELS), s != RAGGED_SEAM) for s in FLAGSHIP_SEAMS + [RAGGED_SEAM]]
-    cases += [(s, ("fwd", "fwd_carry"), s in LIBRARY_SEAMS) for s in FWD_RAGGED + LIBRARY_SEAMS]
+    cases += [(s, ("fwd", "fwd_carry", "wgrad"), s in LIBRARY_SEAMS)
+              for s in FWD_RAGGED + LIBRARY_SEAMS]
     for dtype in (torch.bfloat16, torch.float32):
         for (n, h, w, c, f), names, timed in cases:
             xp = torch.randn((n, h + 2, w + 2, c), generator=gen, device=dev).to(dtype)
             e = (torch.randn((3, 3, c, 4 * f), generator=gen, device=dev) * 0.05).to(dtype)
             dzq = torch.randn((n, h, w, 4 * f), generator=gen, device=dev).to(torch.bfloat16)
             carry = torch.randn((n, 2 * h, 2 * w, f), generator=gen, device=dev).to(dtype)
-            pairs = {
-                "fwd": (lambda: H.fwd(xp, e), lambda: H.fwd_plain(xp, e)),
-                "fwd_carry": (lambda: H.fwd(xp, e, carry), lambda: H.fwd_plain(xp, e, carry)),
-                "dgrad": (lambda: H.dgrad(dzq, e, dtype),
-                          lambda: H.dgrad_plain(dzq, e, dtype)),
-                "wgrad": (lambda: H.wgrad(xp, dzq), lambda: H.wgrad_plain(xp, dzq)),
-            }
+            pairs = seam_calls(H, xp, e, dzq, carry, dtype)
             library = library_calls(xp, e, dzq, carry, dtype)
             for name in names:
                 kern, plain = pairs[name]
@@ -273,6 +281,8 @@ def phase_kernel_parity(dev: torch.device) -> dict:
                                            f"{tuple(want.shape)} {want.dtype}")
                 rel, abs_err = rel_err(got, want)
                 lib_rel, _ = rel_err(lib, want)
+                if name == "wgrad" and not torch.equal(kern(), got):
+                    raise RuntimeError(f"wgrad is not deterministic at {(n, h, w, c, f)}")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], abs_err)
                 line = (f"[parity] {name:9s} {str(dtype)[6:]:8s} N={n} h={h} w={w} C={c} "
                         f"F={f}: rel {rel:.2e} abs {abs_err:.2e}, library rel {lib_rel:.2e}")

@@ -1,0 +1,351 @@
+// Hopper kernel of the fused 2x-upsample -> 3x3-conv decoder seam's weight
+// gradient (K3), bound through a plain C interface (ctypes) by
+// dip_tpu_torch/ops/hopper_up_conv.py, which also holds its plain PyTorch
+// version `wgrad_plain` and the split plan `wgrad_plan`:
+//
+//   wgrad  xp (N,h+2,w+2,C) bf16, dzq (N,h,w,4F) bf16 -> de (3,3,C,4F)
+//
+// de[d, g, c, k] = sum_{n,i,j} xp[n, i+d, j+g, c] * dzq[n, i, j, k], bf16
+// products summed in f32, stored in de's dtype (bf16 or f32). The wrapper
+// rounds an f32 xp to bf16 once before the launch (the operands are bf16 in
+// both modes, as the TPU kernel's mixed mode), so one bf16 main loop serves
+// both dtypes.
+//
+// Replaces _wgrad_kernel (dip_tpu/ops/pallas_up_conv.py:336, launched at
+// :369). The TPU kernel keeps one f32 accumulator resident across a
+// sequential grid; Hopper blocks run in no order, so the N*h*w reduction is
+// split: each block sums its split's pixels into its own f32 workspace slab,
+// and a second pass adds the slabs in split order. No atomics: the result
+// is deterministic, and the number of splits depends on the shape alone.
+//
+// Bound at the flagship's top seam (N=1, h=w=256, C=F=128): 2*N*h*w*9*C*4F
+// = 77.3 GFLOP, 78 us at 989 TFLOP/s dense bf16, against 85 MB moved (xp
+// once, dzq once, de once), 25 us at 3.35 TB/s: compute-bound. The
+// workspace round trip (11 splits x 2.36 MB each way) adds about 16 us.
+//
+// Design: a GEMM per tap, M = C channels, N = 4F phase columns, K = pixels,
+// on mma.sync m16n8k16 (bf16 in, f32 sums). What each part does about the
+// faults of the first version (one tap a block, WMMA fragments, plain
+// synchronous staging, f32 converted while staging):
+//  1. Reuse. A block owns the three taps of one kernel row d x 64 channels
+//     x 128 columns; eight warps own 32 x 32 of each tap (96 f32 sums a
+//     thread). It walks its split's pixel tiles of 8 x 16 pixels. Per tile
+//     it stages one x window of 8 x 18 pixels (rows shifted by d) x 64
+//     channels and one dz tile of 128 pixels x 128 columns, once for all
+//     three taps: at the top seam about 0.85 GB through L2 against the first
+//     version's 1.8 GB.
+//  2. Asynchronous copies. 16-byte cp.async.cg with a zero-fill source size
+//     at the ragged edge, into a ring of three stages, so the copies of
+//     tile t+2 run under the products of tile t. One __syncthreads a tile.
+//     Where C or 4F is not a multiple of 8, or xp or dzq is not 16-byte
+//     aligned, the launcher picks a synchronous masked staging (kAsync =
+//     false) in the same kernel.
+//  3. Tensor cores without bank conflicts. Both operands come through
+//     ldmatrix.x4.trans, one row address a pixel: A = x^T from the window,
+//     where tap g is a column offset of the address (window pixel (i,
+//     j+g)), and B = dz, loaded once a 16-pixel k-step and used by all three
+//     taps. Rows are padded by 16 bytes (x 144 B, dz 272 B), so the eight
+//     rows of every 8x8 matrix fall in eight distinct 16-byte bank groups.
+//  4. No conversion in the loop. x enters as bf16 (the wrapper's one
+//     rounding of an f32 xp), so the staging is a plain 16-byte copy.
+// Warps whose channels or columns lie wholly past C or 4F skip the products,
+// and so do the pixel rows of a tile past h (the small 'library' seams).
+// Shared memory: 166,656 bytes a block, one block (eight warps) an SM.
+// Later work (not here): wgmma (the tap-shifted x rows have a pitch of one
+// pixel, which no wgmma shared-memory descriptor takes, so A would come from
+// registers), TMA, persistent blocks with the reduction fused.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stddef.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int TH = 8;                    // pixel rows of a pixel tile
+constexpr int TW = 16;                   // pixel columns: one 16-pixel k-step a row
+constexpr int BP = TH * TW;              // 128 pixels a tile
+constexpr int BC = 64;                   // channels of a block's output tile
+constexpr int BK = 128;                  // phase columns of a block's output tile
+constexpr int THREADS = 256;             // 2 x 4 warps of 32 channels x 32 columns
+constexpr int STAGES = 3;                // pixel tiles in flight
+constexpr int WIN_COLS = TW + 2;         // the window's pixel columns, taps g = 0..2
+constexpr int WIN = TH * WIN_COLS;       // 144 pixels
+constexpr int X_PITCH = BC + 8;          // 72 bf16 = 144 B a window pixel
+constexpr int D_PITCH = BK + 8;          // 136 bf16 = 272 B a dz pixel
+constexpr int X_ELEMS = WIN * X_PITCH;
+constexpr int D_ELEMS = BP * D_PITCH;
+constexpr int STAGE_ELEMS = X_ELEMS + D_ELEMS;
+constexpr size_t kSmem = (size_t)STAGES * STAGE_ELEMS * sizeof(bf16);
+static_assert(X_ELEMS * sizeof(bf16) % 16 == 0 && STAGE_ELEMS * sizeof(bf16) % 16 == 0,
+              "stages and the dz tile start on 16-byte boundaries");
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// src[0..valid) to dst (16-byte aligned shared memory), zeros past `valid`
+__device__ __forceinline__ void stage8_sync(const bf16* src, int valid, bf16* dst) {
+  alignas(16) bf16 v[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) v[t] = t < valid ? src[t] : __float2bfloat16(0.0f);
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Block (blockIdx.x = (channel tile * tiles_k + column tile) * 3 + d, split
+// blockIdx.y) sums pixel tiles [split * per, min((split + 1) * per, tiles))
+// of the three taps (d, 0..2) into slab `split` of ws (splits, 9, C, 4F).
+// Tile t is image t / (tiles_h * tiles_w), then row-major 8x16 tiles.
+template <bool kAsync>
+__global__ void __launch_bounds__(THREADS, 1)
+up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ dz,
+                         float* __restrict__ ws, int h, int w, int c, int f4, int tiles_k,
+                         int tiles_w, int per_img, int tiles, int per) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // [STAGES][x window | dz tile]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int warp_m = warp >> 2, warp_n = warp & 3;
+  const int d = blockIdx.x % 3;
+  const int n0 = ((blockIdx.x / 3) % tiles_k) * BK;
+  const int c0 = (blockIdx.x / 3 / tiles_k) * BC;
+  const int split = blockIdx.y;
+  const int t_begin = split * per;
+  const int count = min(per, tiles - t_begin);
+  const int hp = h + 2, wp = w + 2;
+  // a warp whose channels or columns all lie past C or 4F has nothing to sum
+  const bool live = c0 + warp_m * 32 < c && n0 + warp_n * 32 < f4;
+
+  // pixel tile t: the x window (rows r0+d.., columns s0..s0+17) and dz
+  auto load_tile = [&](int t, bf16* st) {
+    const int b = t / per_img, rem = t - b * per_img;
+    const int r0 = (rem / tiles_w) * TH, s0 = (rem % tiles_w) * TW;
+    const bf16* xb = xp + ((size_t)b * hp + r0 + d) * wp * c;
+    for (int i = tid; i < WIN * (BC / 8); i += THREADS) {
+      const int px = i / (BC / 8), k8 = (i % (BC / 8)) * 8;
+      const int rr = px / WIN_COLS, cc = s0 + px % WIN_COLS, ch = c0 + k8;
+      const bool ok = r0 + rr < h && cc < wp && ch < c;
+      const bf16* src = ok ? xb + ((size_t)rr * wp + cc) * c + ch : xp;
+      bf16* dst = st + px * X_PITCH + k8;
+      if (kAsync)
+        cp_async16(dst, src, ok);
+      else
+        stage8_sync(src, ok ? min(8, c - ch) : 0, dst);
+    }
+    const bf16* db = dz + ((size_t)b * h + r0) * w * f4;
+    bf16* ds = st + X_ELEMS;
+    for (int i = tid; i < BP * (BK / 8); i += THREADS) {
+      const int px = i / (BK / 8), n8 = (i % (BK / 8)) * 8;
+      const int rr = px / TW, cc = s0 + px % TW, col = n0 + n8;
+      const bool ok = r0 + rr < h && cc < w && col < f4;
+      const bf16* src = ok ? db + ((size_t)rr * w + cc) * f4 + col : dz;
+      bf16* dst = ds + px * D_PITCH + n8;
+      if (kAsync)
+        cp_async16(dst, src, ok);
+      else
+        stage8_sync(src, ok ? min(8, f4 - col) : 0, dst);
+    }
+  };
+
+  float acc[3][2][4][4];  // [tap g][m16 tile][n8 tile][fragment]
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) acc[g][mi][nt][t] = 0.0f;
+
+  // group g carries tile g of the split (empty past its end)
+  if (count > 0) load_tile(t_begin, ring);
+  cp_async_commit();
+  if (count > 1) load_tile(t_begin + 1, ring + STAGE_ELEMS);
+  cp_async_commit();
+
+  // ldmatrix.trans row addresses, in bytes: A (16 channels x 16 pixels) of
+  // window pixel row k = lane%8 + (lane/16)*8, channels +8 for lanes 8-15
+  // and 24-31; B (16 pixels x 16 columns): pixel lane%16, columns +8 for
+  // lanes 16-31
+  const unsigned x_lane =
+      (((lane & 7) + (lane >> 4) * 8) * X_PITCH + warp_m * 32 + ((lane >> 3) & 1) * 8) *
+      (unsigned)sizeof(bf16);
+  const unsigned d_lane =
+      ((lane & 15) * D_PITCH + warp_n * 32 + (lane >> 4) * 8) * (unsigned)sizeof(bf16);
+
+#pragma unroll 1
+  for (int it = 0; it < count; ++it) {
+    cp_async_wait<1>();  // tile `it` has landed
+    __syncthreads();     // ... for every thread; stage (it+2)%3 is free
+    if (it + 2 < count) load_tile(t_begin + it + 2, ring + ((it + 2) % STAGES) * STAGE_ELEMS);
+    cp_async_commit();
+    if (!live) continue;
+
+    const int t = t_begin + it;
+    const int rows = min(TH, h - ((t % per_img) / tiles_w) * TH);
+    const bf16* st = ring + (it % STAGES) * STAGE_ELEMS;
+    const unsigned xa = smem_u32(st) + x_lane;
+    const unsigned da = smem_u32(st + X_ELEMS) + d_lane;
+#pragma unroll
+    for (int kk = 0; kk < TH; ++kk) {
+      if (kk < rows) {
+        unsigned bq[2][4];
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj)
+          ldsm_x4_trans(da + (kk * TW * D_PITCH + nj * 16) * (unsigned)sizeof(bf16), bq[nj]);
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          unsigned a[2][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            ldsm_x4_trans(xa + ((kk * WIN_COLS + g) * X_PITCH + mi * 16) * (unsigned)sizeof(bf16),
+                          a[mi]);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int nj = 0; nj < 2; ++nj) {
+              mma16816(acc[g][mi][2 * nj], a[mi], bq[nj][0], bq[nj][1]);
+              mma16816(acc[g][mi][2 * nj + 1], a[mi], bq[nj][2], bq[nj][3]);
+            }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the sums to this split's slab, two f32 a store; 4F is a multiple of 4,
+  // so a pair is in range whenever its first column is
+  if (!live) return;
+  const int qrow = lane >> 2, qcol = (lane & 3) * 2;
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    float* slab = ws + ((size_t)split * 9 + 3 * d + g) * c * f4;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int ch = c0 + warp_m * 32 + mi * 16 + qrow;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + warp_n * 32 + nt * 8 + qcol;
+        if (col >= f4) continue;
+        if (ch < c)
+          *reinterpret_cast<float2*>(slab + (size_t)ch * f4 + col) =
+              make_float2(acc[g][mi][nt][0], acc[g][mi][nt][1]);
+        if (ch + 8 < c)
+          *reinterpret_cast<float2*>(slab + (size_t)(ch + 8) * f4 + col) =
+              make_float2(acc[g][mi][nt][2], acc[g][mi][nt][3]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162 q[2] = {__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, v.w)};
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(q);
+}
+
+// Second pass: de = the slabs' sum, in split order, four values a thread
+// (9*C*4F is a multiple of 4), rounded once to de's dtype.
+template <typename T>
+__global__ void up_conv_wgrad_sum_kernel(const float4* __restrict__ ws, T* __restrict__ de,
+                                         int splits, size_t quads) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= quads) return;
+  float4 s = ws[i];
+  for (int sp = 1; sp < splits; ++sp) {
+    const float4 v = ws[(size_t)sp * quads + i];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  store4(de + 4 * i, s);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <bool kAsync>
+int launch_mma(const bf16* xp, const bf16* dz, float* ws, int n, int h, int w, int c, int f4,
+               int splits, int per, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(up_conv_wgrad_mma_kernel<kAsync>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_c = (c + BC - 1) / BC, tiles_k = (f4 + BK - 1) / BK;
+  const int tiles_w = (w + TW - 1) / TW, per_img = ((h + TH - 1) / TH) * tiles_w;
+  dim3 grid(tiles_c * tiles_k * 3, splits);
+  up_conv_wgrad_mma_kernel<kAsync><<<grid, THREADS, kSmem, st>>>(
+      xp, dz, ws, h, w, c, f4, tiles_k, tiles_w, per_img, n * per_img, per);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sum(const float* ws, void* de, int splits, int c, int f4, cudaStream_t st) {
+  const size_t quads = (size_t)9 * c * f4 / 4;
+  const int threads = 256;
+  up_conv_wgrad_sum_kernel<T><<<(unsigned)((quads + threads - 1) / threads), threads, 0, st>>>(
+      reinterpret_cast<const float4*>(ws), static_cast<T*>(de), splits, quads);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// -- C interface ---------------------------------------------------------------
+// Launches on `stream`, does not synchronise, allocates nothing, and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue if the splits
+// of `per` pixel tiles do not cover the N*ceil(h/8)*ceil(w/16) tiles. xp and
+// dzq are bf16 (the wrapper rounds an f32 xp once); `de_is_f32` selects float
+// (else bf16) for de. `ws` holds splits * 9 * C * 4F floats; ws and de are
+// 16-byte aligned.
+extern "C" int dip_up_conv_wgrad(const void* xp, const void* dzq, void* ws, void* de, int n,
+                                 int h, int w, int c, int f, int splits, int per,
+                                 int de_is_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long tiles = (long long)n * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  if (splits < 1 || per < 1 || (long long)splits * per < tiles || tiles > INT32_MAX ||
+      !aligned16(ws) || !aligned16(de))
+    return (int)cudaErrorInvalidValue;
+  const bf16* x = static_cast<const bf16*>(xp);
+  const bf16* dq = static_cast<const bf16*>(dzq);
+  float* wsf = static_cast<float*>(ws);
+  const int f4 = 4 * f;
+  // 16-byte copies need whole, aligned 8-element groups in xp's and dzq's rows
+  const int rc = c % 8 == 0 && f4 % 8 == 0 && aligned16(xp) && aligned16(dzq)
+                     ? launch_mma<true>(x, dq, wsf, n, h, w, c, f4, splits, per, st)
+                     : launch_mma<false>(x, dq, wsf, n, h, w, c, f4, splits, per, st);
+  if (rc != 0) return rc;
+  return de_is_f32 ? launch_sum<float>(wsf, de, splits, c, f4, st)
+                   : launch_sum<bf16>(wsf, de, splits, c, f4, st);
+}

@@ -106,8 +106,8 @@ def load() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dip_up_conv_fwd.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 6 + [ptr]
     lib.dip_up_conv_dgrad.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
+    # xp, dzq, workspace, de, n, h, w, c, f, splits, tiles a split, f32, stream
     lib.dip_up_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
-    lib.dip_up_conv_wgrad_tiles.argtypes = [ctypes.POINTER(i32)] * 3
     lib.dip_downsample.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [ptr]
     # x, out, n, h/2, w/2, c, x's 4 strides, in f32, out f32, stream
     lib.dip_s2d_pack.argtypes = [ptr, ptr] + [i32] * 4 + [i64] * 4 + [i32] * 2 + [ptr]
@@ -117,7 +117,7 @@ def load() -> ctypes.CDLL:
                               + [ptr])
     lib.dip_wgrad_tiles.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
     for fn in (lib.dip_up_conv_fwd, lib.dip_up_conv_dgrad, lib.dip_up_conv_wgrad,
-               lib.dip_up_conv_wgrad_tiles, lib.dip_downsample, lib.dip_s2d_pack,
+               lib.dip_downsample, lib.dip_s2d_pack,
                lib.dip_wgrad, lib.dip_wgrad_tiles):
         fn.restype = i32
     _lib = lib

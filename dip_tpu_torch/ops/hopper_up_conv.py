@@ -3,8 +3,9 @@ versions, and the autograd.Function that joins them.
 
 Counterpart of dip_tpu/ops/pallas_up_conv.py. The kernels live in
 `csrc/up_conv_fwd.cu` (fwd, an mma.sync implicit GEMM with a cp.async
-pipeline) and `csrc/up_conv.cu` (dgrad, wgrad), built at first use by
-ops/_build.py:
+pipeline), `csrc/up_conv.cu` (dgrad) and `csrc/up_conv_wgrad.cu` (wgrad,
+mma.sync GEMMs over pixel tiles split as `wgrad_plan` says, with a
+deterministic second pass), built at first use by ops/_build.py:
 
   fwd    xp (N,h+2,w+2,C), e (3,3,C,4F)  -> z (N,2h,2w,F), phase -> HR
          interleave out[2r+p, 2s+q, f] = acc[r, s, (p*2+q)*F + f], plus an
@@ -30,7 +31,8 @@ forward with a carry counts as "fwd_carry".
 
 from __future__ import annotations
 
-import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -173,10 +175,47 @@ def dgrad(dzq: torch.Tensor, e: torch.Tensor,
     return dxp
 
 
-def _wgrad_splits(pixels: int) -> int:
-    """How many slices the N*h*w reduction is cut into: enough blocks to
-    fill the card at the large seams, one slice at the small ones."""
-    return max(1, min(16, pixels // 256))
+# wgrad's tiles (csrc/up_conv_wgrad.cu): pixel tiles of TH x TW, and a
+# block's output tile of one kernel row's three taps x BC channels x BK
+# phase columns
+_WG_TH, _WG_TW, _WG_BC, _WG_BK = 8, 16, 64, 128
+_SMS = 132  # the H100 SXM's streaming multiprocessors
+# at most one split for every six pixel tiles: a split costs one f32
+# (9, C, 4F) slab each way through device memory, which outweighs the
+# parallelism it adds below about six tiles (measured on an H100: PERF.md §6)
+_WG_TILES_A_SPLIT = 6
+
+
+class WgradPlan(NamedTuple):
+    """How wgrad cuts the N*h*w reduction: `splits` slices of
+    `tiles_per_split` consecutive pixel tiles each (the last takes the
+    rest), summing `pixels[s]` pixels into slab s of an f32 workspace of
+    shape `workspace`, on a grid of `grid` blocks (C tiles x 4F tiles x 3
+    kernel rows, splits)."""
+    tiles: int
+    splits: int
+    tiles_per_split: int
+    pixels: tuple[int, ...]
+    grid: tuple[int, int]
+    workspace: tuple[int, int, int, int]
+
+
+@functools.lru_cache(maxsize=64)
+def wgrad_plan(n: int, h: int, w: int, c: int, f: int) -> WgradPlan:
+    """wgrad's split plan for the seam (N, h, w, C, F), from the shape alone:
+    enough splits for two waves of blocks on the card's SMs (one block an
+    SM), but no more than one for every _WG_TILES_A_SPLIT pixel tiles."""
+    rows, cols = -(-h // _WG_TH), -(-w // _WG_TW)
+    tiles = n * rows * cols
+    blocks = -(-c // _WG_BC) * -(-4 * f // _WG_BK) * 3
+    splits = min(-(-2 * _SMS // blocks), -(-tiles // _WG_TILES_A_SPLIT))
+    per = -(-tiles // splits)
+    splits = -(-tiles // per)
+    # pixels of tile t: its valid rows times its valid columns
+    tile_px = [min(_WG_TH, h - r * _WG_TH) * min(_WG_TW, w - s * _WG_TW)
+               for r in range(rows) for s in range(cols)] * n
+    pixels = tuple(sum(tile_px[i * per:(i + 1) * per]) for i in range(splits))
+    return WgradPlan(tiles, splits, per, pixels, (blocks, splits), (splits, 9, c, 4 * f))
 
 
 def wgrad(xp: torch.Tensor, dzq: torch.Tensor) -> torch.Tensor:
@@ -190,21 +229,15 @@ def wgrad(xp: torch.Tensor, dzq: torch.Tensor) -> torch.Tensor:
     _check_dtype("dzq", dzq, (_BF16,))
     if _on_cpu(xp=xp, dzq=dzq):
         return wgrad_plain(xp, dzq)
-    lib = _build.load()
-    wc, wk, wpix = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    lib.dip_up_conv_wgrad_tiles(ctypes.byref(wc), ctypes.byref(wk), ctypes.byref(wpix))
-    pixels = n * h * w
-    splits = _wgrad_splits(pixels)
-    per = -(-pixels // splits)
-    per = -(-per // wpix.value) * wpix.value
-    splits = -(-pixels // per)
-    c_pad = -(-c // wc.value) * wc.value
-    k_pad = -(-f4 // wk.value) * wk.value
-    ws = torch.empty((splits, 9, c_pad, k_pad), dtype=torch.float32, device=xp.device)
+    plan = wgrad_plan(n, h, w, c, f4 // 4)
+    # operands are bf16 in both modes (as _wgrad's _mx): an f32 xp is rounded
+    # once here, so one bf16 main loop serves both; de keeps xp's dtype
+    xb = xp.to(_BF16)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=xp.device)
     de = torch.empty((3, 3, c, f4), dtype=xp.dtype, device=xp.device)
-    rc = lib.dip_up_conv_wgrad(
-        xp.data_ptr(), dzq.data_ptr(), ws.data_ptr(), de.data_ptr(), n, h, w, c,
-        f4 // 4, splits, per, int(xp.dtype == torch.float32), _build.stream())
+    rc = _build.load().dip_up_conv_wgrad(
+        xb.data_ptr(), dzq.data_ptr(), ws.data_ptr(), de.data_ptr(), n, h, w, c, f4 // 4,
+        plan.splits, plan.tiles_per_split, int(xp.dtype == torch.float32), _build.stream())
     _build.raise_on(rc, "seam wgrad")
     LAUNCHES["wgrad"] += 1
     return de

@@ -14,7 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from chip_smoke import TOL as CARD_TOL, library_calls, seam_bound  # noqa: E402
+from chip_smoke import (FLAGSHIP_SEAMS, FWD_RAGGED, RAGGED_SEAM, TOL as CARD_TOL,  # noqa: E402
+                        LIBRARY_SEAMS as CARD_LIBRARY_SEAMS, library_calls, seam_bound)
 from dip_tpu_torch.ops import hopper_up_conv as H  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -86,6 +87,25 @@ def test_plain_versions_match_pallas_kernels(jx, hw, dtype):
         assert str(got.dtype) == f"torch.{want.dtype}", name
         rel = _rel(got.float().numpy(), np.asarray(want, dtype=np.float32))
         assert rel < TOL[dtype], (name, rel)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wgrad_plain_matches_pallas_kernel_off_8(jx, dtype):
+    """wgrad_plain against the Pallas _wgrad where C and 4F are off
+    multiples of 8 (C = 20, F = 7; N = 2, w off the kernel's 16-pixel
+    tile), the shapes at which the Hopper kernel stages synchronously."""
+    jax, P = jx
+    n, h, w, c, f = 2, 8, 10, 20, 7
+    rng = np.random.default_rng(11)
+    t = getattr(torch, dtype)
+    xp = torch.from_numpy(rng.normal(size=(n, h + 2, w + 2, c)).astype(np.float32)).to(t)
+    dzq = torch.from_numpy(rng.normal(size=(n, h, w, 4 * f)).astype(np.float32)).to(torch.bfloat16)
+    want = jax.jit(P._wgrad)(_jnp(jax, xp.float().numpy(), dtype),
+                             _jnp(jax, dzq.float().numpy(), "bfloat16"))
+    got = H.wgrad_plain(xp, dzq)
+    assert tuple(got.shape) == want.shape and str(got.dtype) == f"torch.{want.dtype}"
+    assert _rel(got.float().numpy(), np.asarray(want, dtype=np.float32)) < TOL[dtype]
+    torch.testing.assert_close(H.wgrad(xp, dzq), got, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -184,8 +204,9 @@ def test_kernels_match_plain_versions_on_card():
     assert set(stats) == {"fwd", "fwd_carry", "dgrad", "wgrad"}
 
 
-# (N, h, w, C, F): C and 4F off multiples of 8, and N = 2
-LIBRARY_SEAMS = [(1, 4, 6, 8, 4), (2, 5, 3, 5, 3), (2, 6, 4, 12, 5)]
+# (N, h, w, C, F): C and 4F off multiples of 8, and N = 2; the last also
+# with h and w off the 8x16 pixel tile of the Hopper kernels
+LIBRARY_SEAMS = [(1, 4, 6, 8, 4), (2, 5, 3, 5, 3), (2, 6, 4, 12, 5), (1, 9, 17, 20, 7)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -219,3 +240,32 @@ def test_seam_bounds_at_the_top_flagship_seam():
         assert by == "operations" and ms == pytest.approx(77.3e9 / 989e12 * 1e3, rel=1e-3)
     ms, by = seam_bound("fwd", 1, 16, 16, 8, 2, torch.float32)
     assert by == "bytes"
+
+
+@pytest.mark.parametrize("seam", FLAGSHIP_SEAMS + [RAGGED_SEAM] + FWD_RAGGED + CARD_LIBRARY_SEAMS)
+def test_wgrad_split_plan(seam):
+    """wgrad_plan, which sizes every K3 launch, at the seams chip_smoke.py
+    holds the kernel to: its splits sum the N*h*w pixels once, each split
+    in whole 8x16 pixel tiles (tiles_per_split of them but the last, which
+    takes the rest); the workspace is one f32 (9, C, 4F) slab a split; the
+    plan depends on the shape alone; and at the top flagship seam the grid
+    fills at least two waves of the H100's 132 SMs."""
+    n, h, w, c, f = seam
+    plan = H.wgrad_plan(n, h, w, c, f)
+    # each tile's pixels, counted from a mask of the valid pixels
+    rows, cols = -(-h // 8), -(-w // 16)
+    valid = np.zeros((n, rows * 8, cols * 16), dtype=np.int64)
+    valid[:, :h, :w] = 1
+    tile_px = valid.reshape(n, rows, 8, cols, 16).sum(axis=(2, 4)).reshape(-1)
+    per = plan.tiles_per_split
+    assert plan.tiles == tile_px.size
+    assert (plan.splits - 1) * per < plan.tiles <= plan.splits * per
+    assert plan.pixels == tuple(int(tile_px[i * per:(i + 1) * per].sum())
+                                for i in range(plan.splits))
+    assert sum(plan.pixels) == n * h * w
+    assert plan.workspace == (plan.splits, 9, c, 4 * f)
+    assert plan.grid == (-(-c // 64) * -(-4 * f // 128) * 3, plan.splits)
+    H.wgrad_plan.cache_clear()
+    assert H.wgrad_plan(n, h, w, c, f) == plan
+    if seam == FLAGSHIP_SEAMS[-1]:
+        assert plan.grid[0] * plan.grid[1] >= 2 * 132
