@@ -10,12 +10,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
      shapes in bf16 and f32 and at one ragged shape, with times at the
      flagship shapes beside the plain version's and those of the one
      PyTorch call that computes the same function (cuDNN's conv, transposed
-     conv and weight gradient, each first held to the plain version); the
-     forward, its carry-in and the weight gradient also at seams that cut
-     their tiles raggedly and at the 'library' / restoration 'kate' seams
-     (C, F = 16..128), timed there; the weight gradient launched twice at
-     every seam, the two results bitwise equal; the downsample kernel
-     against its plain version at
+     conv and weight gradient, each first held to the plain version); every
+     seam kernel also at seams that cut its tiles raggedly and at the
+     'library' / restoration 'kate' seams (C, F = 16..128), timed there;
+     the data and weight gradients (whose reductions may be split) launched
+     twice at every seam, the two results bitwise equal; the downsample
+     kernel against its plain version at
      the SR geometries (x4 and x8 at HR 384x576, a ragged batch, gauss12,
      box, preserve_size=False), with times; the s2d pack (bitwise) at the
      five 'kate' seam cotangents, NHWC and channel-planar, and ragged; the
@@ -83,7 +83,7 @@ MAIN_STEPS = 30
 KERNELS = {
     "fwd": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
     "fwd_carry": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
-    "dgrad": ("dip_tpu_torch/csrc/up_conv.cu", "dip_tpu/ops/pallas_up_conv.py:307"),
+    "dgrad": ("dip_tpu_torch/csrc/up_conv_dgrad.cu", "dip_tpu/ops/pallas_up_conv.py:307"),
     "wgrad": ("dip_tpu_torch/csrc/up_conv_wgrad.cu", "dip_tpu/ops/pallas_up_conv.py:369"),
 }
 DOWNSAMPLE = ("dip_tpu_torch/csrc/resample.cu", "dip_tpu/ops/pallas_resample.py:119")
@@ -258,11 +258,10 @@ def phase_kernel_parity(dev: torch.device) -> dict:
     stats = {k: {"max_abs_err": 0.0} for k in KERNELS}
     gen = torch.Generator(device=dev).manual_seed(0)
     # (shape, kernels held, timed): every kernel at the flagship and ragged
-    # seams, the redesigned ones (forward and weight gradient) also at the
-    # seams that cut their tiles and at the 'library' seams
-    cases = [(s, tuple(KERNELS), s != RAGGED_SEAM) for s in FLAGSHIP_SEAMS + [RAGGED_SEAM]]
-    cases += [(s, ("fwd", "fwd_carry", "wgrad"), s in LIBRARY_SEAMS)
-              for s in FWD_RAGGED + LIBRARY_SEAMS]
+    # seams, at the seams that cut their tiles and at the 'library' seams;
+    # timed at all but the ragged ones
+    cases = [(s, tuple(KERNELS), s in FLAGSHIP_SEAMS + LIBRARY_SEAMS)
+             for s in FLAGSHIP_SEAMS + [RAGGED_SEAM] + FWD_RAGGED + LIBRARY_SEAMS]
     for dtype in (torch.bfloat16, torch.float32):
         for (n, h, w, c, f), names, timed in cases:
             xp = torch.randn((n, h + 2, w + 2, c), generator=gen, device=dev).to(dtype)
@@ -281,8 +280,8 @@ def phase_kernel_parity(dev: torch.device) -> dict:
                                            f"{tuple(want.shape)} {want.dtype}")
                 rel, abs_err = rel_err(got, want)
                 lib_rel, _ = rel_err(lib, want)
-                if name == "wgrad" and not torch.equal(kern(), got):
-                    raise RuntimeError(f"wgrad is not deterministic at {(n, h, w, c, f)}")
+                if name in ("dgrad", "wgrad") and not torch.equal(kern(), got):
+                    raise RuntimeError(f"{name} is not deterministic at {(n, h, w, c, f)}")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], abs_err)
                 line = (f"[parity] {name:9s} {str(dtype)[6:]:8s} N={n} h={h} w={w} C={c} "
                         f"F={f}: rel {rel:.2e} abs {abs_err:.2e}, library rel {lib_rel:.2e}")

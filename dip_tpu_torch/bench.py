@@ -30,9 +30,10 @@ import torch
 
 REFERENCE_GPU_ESTIMATE_ITERS_PER_SEC = 10.0
 # the kernels of dip_tpu_torch/csrc, as the profiler names them
-PORT_KERNELS = ("up_conv_fwd_mma_kernel", "up_conv_dgrad_kernel", "up_conv_wgrad_mma_kernel",
-                "up_conv_wgrad_sum_kernel", "s2d_pack_kernel", "wgrad_bf16_kernel",
-                "wgrad_f32_kernel", "wgrad_reduce_kernel", "downsample_kernel")
+PORT_KERNELS = ("up_conv_fwd_mma_kernel", "up_conv_dgrad_mma_kernel", "up_conv_dgrad_sum_kernel",
+                "up_conv_wgrad_mma_kernel", "up_conv_wgrad_sum_kernel", "s2d_pack_kernel",
+                "wgrad_bf16_kernel", "wgrad_f32_kernel", "wgrad_reduce_kernel",
+                "downsample_kernel")
 _BASELINE = Path(__file__).resolve().parents[1] / "results" / "torch_baseline.json"
 
 

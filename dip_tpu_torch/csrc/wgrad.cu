@@ -20,8 +20,8 @@
 // tap, one tile of input channels and one tile of output channels into its
 // own f32 workspace slab, and a second pass adds the slabs in split order.
 // No atomics: two runs give the same dW. This is the seam wgrad's scheme
-// (up_conv.cu), generalised to strided inputs, any tap count and halo, and
-// true f32; the seam's kernel itself is left as it is.
+// (up_conv_wgrad.cu), generalised to strided inputs, any tap count and
+// halo, and true f32; the seam's kernel itself is left as it is.
 //
 // Numerics. These kernels stand in for cuDNN's weight gradient, so:
 //  - bf16 inputs: nvcuda::wmma 16x16x16 bf16 products, f32 sums;

@@ -105,7 +105,8 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dip_up_conv_fwd.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 6 + [ptr]
-    lib.dip_up_conv_dgrad.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
+    # dzq, e, workspace, dxp, n, h, w, c, f, splits, steps a split, f32, stream
+    lib.dip_up_conv_dgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
     # xp, dzq, workspace, de, n, h, w, c, f, splits, tiles a split, f32, stream
     lib.dip_up_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
     lib.dip_downsample.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [ptr]

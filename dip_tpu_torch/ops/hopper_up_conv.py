@@ -3,9 +3,11 @@ versions, and the autograd.Function that joins them.
 
 Counterpart of dip_tpu/ops/pallas_up_conv.py. The kernels live in
 `csrc/up_conv_fwd.cu` (fwd, an mma.sync implicit GEMM with a cp.async
-pipeline), `csrc/up_conv.cu` (dgrad) and `csrc/up_conv_wgrad.cu` (wgrad,
-mma.sync GEMMs over pixel tiles split as `wgrad_plan` says, with a
-deterministic second pass), built at first use by ops/_build.py:
+pipeline), `csrc/up_conv_dgrad.cu` (dgrad, the same machinery over the
+phase-major dz, its reduction split as `dgrad_plan` says) and
+`csrc/up_conv_wgrad.cu` (wgrad, mma.sync GEMMs over pixel tiles split as
+`wgrad_plan` says); a split reduction ends in a deterministic second pass.
+They are built at first use by ops/_build.py:
 
   fwd    xp (N,h+2,w+2,C), e (3,3,C,4F)  -> z (N,2h,2w,F), phase -> HR
          interleave out[2r+p, 2s+q, f] = acc[r, s, (p*2+q)*F + f], plus an
@@ -151,6 +153,52 @@ def fwd(xp: torch.Tensor, e: torch.Tensor,
     return out
 
 
+_SMS = 132  # the H100 SXM's streaming multiprocessors
+# dgrad's tiles (csrc/up_conv_dgrad.cu): a block owns TH x TW dxp pixels x
+# BN channels and runs 9 steps (taps) for each KC-column chunk of 4F; two
+# blocks an SM
+_DG_TH, _DG_TW, _DG_BN, _DG_KC, _DG_BLOCKS_AN_SM = 8, 16, 128, 64, 2
+# no split shorter than this many steps (measured on an H100: PERF.md §6)
+_DG_MIN_STEPS = 9
+
+
+class DgradPlan(NamedTuple):
+    """How dgrad cuts its reduction over `steps` = 9 * ceil(4F / 64) steps
+    (step t: 64-column chunk t // 9 of 4F, tap t % 9 = 3d + g): split s
+    runs steps [s * steps_per_split, min((s + 1) * steps_per_split, steps))
+    on `blocks` blocks (N x dxp pixel tiles x channel tiles). A split is
+    whole chunks, or whole kernel rows of three taps where 4F is one chunk.
+    One split stores dxp directly (`workspace` None); more write one f32
+    slab of dxp's shape each into a workspace of shape `workspace`, added
+    in split order."""
+    blocks: int
+    steps: int
+    splits: int
+    steps_per_split: int
+    workspace: tuple[int, int, int, int, int] | None
+
+
+@functools.lru_cache(maxsize=64)
+def dgrad_plan(n: int, h: int, w: int, c: int, f: int) -> DgradPlan:
+    """dgrad's split plan for the seam (N, h, w, C, F), from the shape alone:
+    where one split fills less than a wave of blocks (two an SM), enough
+    splits for about two waves, but none shorter than _DG_MIN_STEPS steps,
+    and never a chunk cut in two (so no halo is staged twice). A grid that
+    fills a wave is not split: more splits add waves of shorter blocks and
+    f32 slabs, not concurrency (measured on an H100: PERF.md §6)."""
+    steps = 9 * -(-4 * f // _DG_KC)
+    unit = 9 if steps > 9 else 3
+    blocks = n * -(-(h + 2) // _DG_TH) * -(-(w + 2) // _DG_TW) * -(-c // _DG_BN)
+    wave = _DG_BLOCKS_AN_SM * _SMS
+    want = 1 if blocks >= wave else -(-2 * wave // blocks)
+    units = steps // unit
+    per_units = min(units, max(-(-units // want), -(-_DG_MIN_STEPS // unit)))
+    per = per_units * unit
+    splits = -(-steps // per)
+    workspace = (splits, n, h + 2, w + 2, c) if splits > 1 else None
+    return DgradPlan(blocks, steps, splits, per, workspace)
+
+
 def dgrad(dzq: torch.Tensor, e: torch.Tensor,
           out_dtype: torch.dtype) -> torch.Tensor:
     """Data gradient: phase-major dzq (N,h,w,4F) bf16 -> dxp (N,h+2,w+2,C)."""
@@ -165,10 +213,14 @@ def dgrad(dzq: torch.Tensor, e: torch.Tensor,
         raise TypeError(f"out_dtype {out_dtype} not supported")
     if _on_cpu(dzq=dzq, e=e):
         return dgrad_plain(dzq, e, out_dtype)
+    plan = dgrad_plan(n, h, w, c, f4 // 4)
     eb = e.to(_BF16)
+    ws = (None if plan.workspace is None
+          else torch.empty(plan.workspace, dtype=torch.float32, device=dzq.device))
     dxp = torch.empty((n, h + 2, w + 2, c), dtype=out_dtype, device=dzq.device)
     rc = _build.load().dip_up_conv_dgrad(
-        dzq.data_ptr(), eb.data_ptr(), dxp.data_ptr(), n, h, w, c, f4 // 4,
+        dzq.data_ptr(), eb.data_ptr(), None if ws is None else ws.data_ptr(), dxp.data_ptr(),
+        n, h, w, c, f4 // 4, plan.splits, plan.steps_per_split,
         int(out_dtype == torch.float32), _build.stream())
     _build.raise_on(rc, "seam dgrad")
     LAUNCHES["dgrad"] += 1
@@ -179,7 +231,6 @@ def dgrad(dzq: torch.Tensor, e: torch.Tensor,
 # block's output tile of one kernel row's three taps x BC channels x BK
 # phase columns
 _WG_TH, _WG_TW, _WG_BC, _WG_BK = 8, 16, 64, 128
-_SMS = 132  # the H100 SXM's streaming multiprocessors
 # at most one split for every six pixel tiles: a split costs one f32
 # (9, C, 4F) slab each way through device memory, which outweighs the
 # parallelism it adds below about six tiles (measured on an H100: PERF.md §6)

@@ -109,6 +109,28 @@ def test_wgrad_plain_matches_pallas_kernel_off_8(jx, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seam", [(2, 8, 10, 20, 7), (1, 5, 19, 24, 12), (2, 7, 9, 5, 3)])
+def test_dgrad_plain_matches_pallas_kernel_off_8(jx, seam, dtype):
+    """dgrad_plain against the Pallas _dgrad where C or 4F is off a multiple
+    of 8 (the Hopper kernel's synchronous staging and scalar epilogue), N = 2,
+    and h + 2, w + 2 off the kernel's 8x16 dxp tile; and the wrapper on CPU
+    tensors is the plain version."""
+    jax, P = jx
+    n, h, w, c, f = seam
+    rng = np.random.default_rng(sum(seam))
+    t = getattr(torch, dtype)
+    e = torch.from_numpy(rng.normal(size=(3, 3, c, 4 * f)).astype(np.float32) * 0.1).to(t)
+    dzq = torch.from_numpy(rng.normal(size=(n, h, w, 4 * f)).astype(np.float32)).to(torch.bfloat16)
+    want = jax.jit(P._dgrad, static_argnums=(2, 3))(
+        _jnp(jax, dzq.float().numpy(), "bfloat16"), _jnp(jax, e.float().numpy(), dtype),
+        (n, h + 2, w + 2, c), getattr(jax.numpy, dtype))
+    got = H.dgrad_plain(dzq, e, t)
+    assert tuple(got.shape) == want.shape and str(got.dtype) == f"torch.{want.dtype}"
+    assert _rel(got.float().numpy(), np.asarray(want, dtype=np.float32)) < TOL[dtype]
+    torch.testing.assert_close(H.dgrad(dzq, e, t), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hw", [(8, 8), (16, 12)])
 def test_carry_plain_version_matches_pallas_kernel(jx, hw, dtype):
     """fwd_plain(xp, e, carry) against the Pallas forward with its carry-in
@@ -269,3 +291,44 @@ def test_wgrad_split_plan(seam):
     assert H.wgrad_plan(n, h, w, c, f) == plan
     if seam == FLAGSHIP_SEAMS[-1]:
         assert plan.grid[0] * plan.grid[1] >= 2 * 132
+
+
+# the seams chip_smoke.py holds K2 to, and one whose single split fills
+# 1.94 waves of two blocks an SM (512 blocks)
+@pytest.mark.parametrize("seam", FLAGSHIP_SEAMS + [RAGGED_SEAM] + FWD_RAGGED + CARD_LIBRARY_SEAMS
+                         + [(1, 254, 254, 128, 128)])
+def test_dgrad_split_plan(seam):
+    """dgrad_plan, which sizes every K2 launch, at the seams chip_smoke.py
+    holds the kernel to: its splits run the 9 * ceil(4F/64) steps once, in
+    order, each split whole 64-column chunks (or, where 4F is one chunk,
+    whole kernel rows of three taps) and none shorter than the floor but
+    the last; the workspace is one f32 (N, h+2, w+2, C) slab a split, none
+    for one split; a grid that fills a wave of two blocks an SM is not
+    split; the plan depends on the shape alone; and at the top flagship
+    seam it is one split, no workspace, on a grid of two waves."""
+    n, h, w, c, f = seam
+    plan = H.dgrad_plan(n, h, w, c, f)
+    chunks = -(-4 * f // 64)
+    assert plan.steps == 9 * chunks
+    assert plan.blocks == n * -(-(h + 2) // 8) * -(-(w + 2) // 16) * -(-c // 128)
+    per = plan.steps_per_split
+    spans = [(s * per, min((s + 1) * per, plan.steps)) for s in range(plan.splits)]
+    # every step once, in order, each split non-empty
+    assert [t for a, b in spans for t in range(a, b)] == list(range(plan.steps))
+    assert all(b > a for a, b in spans)
+    # whole chunks, or whole kernel rows where 4F is one chunk (the kernel's
+    # entry refuses a run that is not a multiple of 3)
+    assert per % (9 if chunks > 1 else 3) == 0
+    assert per >= min(H._DG_MIN_STEPS, plan.steps)
+    if plan.splits == 1:
+        assert plan.workspace is None
+    else:
+        assert plan.workspace == (plan.splits, n, h + 2, w + 2, c)
+        # split only below one wave, and no more than two waves need
+        assert plan.blocks < 2 * 132
+        assert (plan.splits - 1) * plan.blocks < 2 * 2 * 132
+    H.dgrad_plan.cache_clear()
+    assert H.dgrad_plan(n, h, w, c, f) == plan
+    if seam == FLAGSHIP_SEAMS[-1]:
+        assert plan.splits == 1 and plan.workspace is None
+        assert plan.blocks >= 2 * 132
