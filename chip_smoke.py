@@ -20,7 +20,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      box, preserve_size=False), with times; the s2d pack (bitwise) at the
      five 'kate' seam cotangents, NHWC and channel-planar, and ragged; the
      3x3 and 1x1 weight-gradient kernels at the 'kate' shapes in bf16 and
-     f32, with times beside their plain versions' and cuDNN's;
+     f32, NHWC and channel-planar, launched twice and bitwise equal, with
+     times beside their plain versions' and cuDNN's (the bf16 3x3's with
+     the time of its operands' layout copies, which its time includes);
   4. small-input reference: a 2-scale 128-channel skip net, forward and
      gradients on the card against the same net on the CPU: under an MSE
      at full resolution, and under the SR loss (x4 downsample, MSE at LR)
@@ -88,7 +90,10 @@ KERNELS = {
 }
 DOWNSAMPLE = ("dip_tpu_torch/csrc/resample.cu", "dip_tpu/ops/pallas_resample.py:119")
 S2D = ("dip_tpu_torch/csrc/s2d.cu", "dip_tpu/ops/pallas_s2d.py:101")
-WGRAD = {"wgrad3x3_s1": ("dip_tpu_torch/csrc/wgrad.cu", "dip_tpu/ops/pallas_wgrad.py:153"),
+# the bf16 3x3 gradient (the kernels line's row) runs the seam wgrad's
+# kernel; in f32 it runs csrc/wgrad.cu
+WGRAD = {"wgrad3x3_s1": ("dip_tpu_torch/csrc/up_conv_wgrad.cu",
+                         "dip_tpu/ops/pallas_wgrad.py:153"),
          "wgrad1x1": ("dip_tpu_torch/csrc/wgrad.cu", "dip_tpu/ops/pallas_wgrad.py:210")}
 # the seam cotangents of inpainting 'kate' at 512^2, (N, 2h, 2w, 128)
 KATE_DZ = [(1, 2 * h, 2 * h, 128) for h in (16, 32, 64, 128, 256)]
@@ -99,13 +104,18 @@ S2D_RAGGED = [(2, 12, 20, 24), (1, 6, 10, 5)]
 WGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # (kernel, halo, x shape, g shape, layout): the 'kate' fit's shapes at
 # 512^2 (its reflect-padded 3x3 convs at halo 0; the 1x1 skip, up and head
-# convs), a zero-padded 3x3, ragged batches, and channel-planar inputs
+# convs), a zero-padded 3x3, ragged batches, channel counts off 8 (the
+# synchronous staging) and off 4 (the one-value sum pass), and
+# channel-planar inputs
 WGRAD_CASES = [
     ("wgrad3x3_s1", 0, (1, 514, 514, 128), (1, 512, 512, 128), "nhwc"),
+    ("wgrad3x3_s1", 0, (1, 514, 514, 128), (1, 512, 512, 128), "planar"),
     ("wgrad3x3_s1", 0, (1, 258, 258, 128), (1, 256, 256, 128), "nhwc"),
     ("wgrad3x3_s1", 0, (1, 258, 258, 128), (1, 256, 256, 128), "planar"),
     ("wgrad3x3_s1", 1, (1, 256, 256, 128), (1, 256, 256, 128), "nhwc"),
     ("wgrad3x3_s1", 1, (2, 19, 23, 24), (2, 19, 23, 40), "nhwc"),
+    ("wgrad3x3_s1", 1, (2, 19, 23, 20), (2, 19, 23, 12), "nhwc"),
+    ("wgrad3x3_s1", 0, (1, 12, 15, 5), (1, 10, 13, 3), "planar"),
     ("wgrad1x1", 0, (1, 512, 512, 128), (1, 512, 512, 128), "nhwc"),
     ("wgrad1x1", 0, (1, 512, 512, 128), (1, 512, 512, 128), "planar"),
     ("wgrad1x1", 0, (1, 512, 512, 128), (1, 512, 512, 3), "nhwc"),
@@ -193,6 +203,19 @@ def seam_bound(name: str, n: int, h: int, w: int, c: int, f: int,
     nbytes = {"fwd": xp + e + z, "fwd_carry": xp + e + 2 * z, "dgrad": dzq + e + xp,
               "wgrad": xp + dzq + e}[name]
     return bound(2.0 * n * h * w * 9 * c * 4 * f, "bf16", nbytes)
+
+
+def wgrad_bound(ks: int, x_shape, g_shape, dtype: torch.dtype) -> tuple[float, str]:
+    """The bound of a ks x ks weight gradient of x (N,Hx,Wx,Ci) against g
+    (N,H,W,Co): 2*N*H*W*ks*ks*Ci*Co operations of dtype's kind (tensor cores
+    in bf16, FMA in f32) against x and g read once and dW written once in
+    f32."""
+    n, h, w, co = g_shape
+    ci = x_shape[3]
+    s = torch.finfo(dtype).bits // 8
+    nbytes = s * (int(np.prod(x_shape)) + int(np.prod(g_shape))) + 4 * ks * ks * ci * co
+    return bound(2.0 * n * h * w * ks * ks * ci * co,
+                 "bf16" if dtype == torch.bfloat16 else "f32", nbytes)
 
 
 # -- library yardsticks: the one PyTorch call that computes each seam
@@ -403,7 +426,9 @@ def phase_s2d_parity(dev: torch.device) -> dict:
 def phase_wgrad_parity(dev: torch.device) -> dict:
     """The 3x3 and 1x1 weight-gradient kernels against their plain
     versions, with times beside the plain version's and cuDNN's own weight
-    gradient (what the kernel replaces on the path; TF32 off)."""
+    gradient (what the kernel replaces on the path; TF32 off). The bf16 3x3
+    kernel takes NHWC-dense operands: its timed lines also give the time of
+    the copies that make them (part of its own time)."""
     from dip_tpu_torch.ops import hopper_wgrad as W
 
     stats = {k: {"max_abs_err": 0.0} for k in WGRAD}
@@ -441,11 +466,12 @@ def phase_wgrad_parity(dev: torch.device) -> dict:
                 ms, plain_ms, dnn_ms = time_ms(kern, reps), time_ms(plain, reps), time_ms(cudnn, reps)
                 line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                          f"cudnn {dnn_ms:.4f} ms")
+                if ks == 3 and dtype == torch.bfloat16:
+                    copy_ms = time_ms(lambda: W._k5_operands(x, g, halo), reps)
+                    line += f", of which the operands' layout copies {copy_ms:.4f} ms"
                 if (dtype, layout, xs[1], xs[3], gs[3]) == (torch.bfloat16, "nhwc", 514 if ks == 3
                                                             else 512, 128, 128):
-                    ops = 2.0 * gs[0] * gs[1] * gs[2] * ks * ks * xs[3] * gs[3]
-                    nbytes = 2 * (x.numel() + g.numel()) + 4 * got.numel()  # dW in f32
-                    bound_ms, by = bound(ops, "bf16", nbytes)
+                    bound_ms, by = wgrad_bound(ks, xs, gs, dtype)
                     stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=dnn_ms,
                                        bound_ms=bound_ms, bound_by=by)
             log(line)

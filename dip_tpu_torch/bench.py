@@ -10,11 +10,14 @@ card it raises.
 
     python -m dip_tpu_torch.bench [--size 512] [--iters 100]
     python -m dip_tpu_torch.bench --profile 5   # kernel table per dtype
-    python -m dip_tpu_torch.bench --profile 5 --fit kate
+    python -m dip_tpu_torch.bench --profile 5 --fit kate [--conv-wgrad 3x3]
 
 `--fit kate` profiles inpainting 'kate' (128-channel skips, nearest up,
 masked MSE) on a synthetic image and mask of the same size in place of the
-flagship.
+flagship; `--conv-wgrad` routes its conv weight gradients through the
+port's kernels (the model's `conv_wgrad`, 'off' by default). The bf16 3x3
+gradient (K5) shares `up_conv_wgrad_mma_kernel` and its sum pass with the
+seam's (K3): the profile of the same fit with 'off' gives K3's share.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import torch
 REFERENCE_GPU_ESTIMATE_ITERS_PER_SEC = 10.0
 # the kernels of dip_tpu_torch/csrc, as the profiler names them
 PORT_KERNELS = ("up_conv_fwd_mma_kernel", "up_conv_dgrad_mma_kernel", "up_conv_dgrad_sum_kernel",
-                "up_conv_wgrad_mma_kernel", "up_conv_wgrad_sum_kernel", "s2d_pack_kernel",
+                "up_conv_wgrad_mma_kernel", "up_conv_wgrad_sum_kernel",
+                "up_conv_wgrad_sum_rows_kernel", "s2d_pack_kernel",
                 "wgrad_bf16_kernel", "wgrad_f32_kernel", "wgrad_reduce_kernel",
                 "downsample_kernel")
 _BASELINE = Path(__file__).resolve().parents[1] / "results" / "torch_baseline.json"
@@ -81,8 +85,9 @@ def synthetic_inpaint(size: int) -> tuple[np.ndarray, np.ndarray]:
     return img[None].astype(np.float32), mask[None]
 
 
-def _kate(size: int, compute_dtype: str | None, device: str):
-    """(engine, state, aux) of inpainting 'kate' on a CUDA device."""
+def _kate(size: int, compute_dtype: str | None, device: str, conv_wgrad: str = "off"):
+    """(engine, state, aux) of inpainting 'kate' on a CUDA device, its conv
+    weight gradients routed as `conv_wgrad` says."""
     import dataclasses
 
     from dip_tpu_torch.fit.engine import Engine, resolve_device
@@ -94,6 +99,7 @@ def _kate(size: int, compute_dtype: str | None, device: str):
         raise ValueError("the bench measures a CUDA device")
     img, mask = synthetic_inpaint(size)
     spec = inpaint.task(img * mask, mask, "kate", gt=img)
+    spec.model.conv_wgrad = conv_wgrad
     cfg = dataclasses.replace(spec.cfg, compute_dtype=compute_dtype)
     eng = Engine(spec.model, spec.loss_fn, cfg, spec.metrics_fn, device=dev)
     state = eng.init_state(0, make_input(spec, torch.Generator().manual_seed(0), dev),
@@ -171,16 +177,18 @@ def run_full(size: int = 512, iters: int = 100, print_json: bool = True) -> dict
 
 
 def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
-            device: str = "cuda", rows: int = 30, fit: str = "flagship") -> dict:
+            device: str = "cuda", rows: int = 30, fit: str = "flagship",
+            conv_wgrad: str = "off") -> dict:
     """torch.profiler over `steps` warm steps of the flagship (or of
-    inpainting 'kate'): prints the kernels by device time, then each of the
-    port's own kernels with its ms and launches a step, and returns the
-    window's wall time, summed kernel time, the device's idle share
-    (1 - kernel time / wall time) and the port's kernels."""
+    inpainting 'kate', with `conv_wgrad`): prints the kernels by device
+    time, then each of the port's own kernels with its ms and launches a
+    step, and returns the window's wall time, summed kernel time, the
+    device's idle share (1 - kernel time / wall time) and the port's
+    kernels."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     if fit == "kate":
-        eng, state, target = _kate(size, compute_dtype, device)
+        eng, state, target = _kate(size, compute_dtype, device, conv_wgrad)
     else:
         eng, state, target = _flagship(size, steps, compute_dtype, device)
     for _ in range(10):
@@ -196,7 +204,8 @@ def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
     kernel_us = sum(e.self_device_time_total for e in avgs
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     tag = compute_dtype or "float32"
-    print(f"# profile {fit} {tag}: {steps} steps, wall {wall * 1e3 / steps:.2f} ms/step, "
+    what = f"{fit} {tag}" + (f" conv_wgrad={conv_wgrad}" if fit == "kate" else "")
+    print(f"# profile {what}: {steps} steps, wall {wall * 1e3 / steps:.2f} ms/step, "
           f"kernels {kernel_us / 1e3 / steps:.2f} ms/step, device idle "
           f"{1 - kernel_us / 1e6 / wall:.3f} | {card_line()} | {eng.tf32}", flush=True)
     print(avgs.table(sort_by="self_device_time_total", row_limit=rows), flush=True)
@@ -206,14 +215,16 @@ def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
         if name is not None and e.device_type == torch.autograd.DeviceType.CUDA:
             ms, n = ours.setdefault(name, [0.0, 0.0])
             ours[name] = [ms + e.self_device_time_total / 1e3 / steps, n + e.count / steps]
-    print(f"# port kernels {fit} {tag} (ms, launches a step): " + ", ".join(
+    print(f"# port kernels {what} (ms, launches a step): " + ", ".join(
         f"{k} {ms:.4f} ({n:g})" for k, (ms, n) in ours.items()), flush=True)
-    return {"fit": fit, "dtype": tag, "wall_ms_per_step": wall * 1e3 / steps,
-            "kernel_ms_per_step": kernel_us / 1e3 / steps,
+    return {"fit": fit, "dtype": tag, "conv_wgrad": conv_wgrad,
+            "wall_ms_per_step": wall * 1e3 / steps, "kernel_ms_per_step": kernel_us / 1e3 / steps,
             "device_idle": 1 - kernel_us / 1e6 / wall, "port_kernels": ours}
 
 
 def main() -> None:
+    from dip_tpu_torch.models.blocks import CONV_WGRAD
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--iters", type=int, default=100)
@@ -221,10 +232,14 @@ def main() -> None:
                     help="instead of timing, profile STEPS steps per dtype")
     ap.add_argument("--fit", choices=("flagship", "kate"), default="flagship",
                     help="the fit --profile runs")
+    ap.add_argument("--conv-wgrad", default="off", choices=CONV_WGRAD,
+                    help="--fit kate: route these conv weight gradients through the kernels")
     args = ap.parse_args()
+    if args.conv_wgrad != "off" and not (args.profile and args.fit == "kate"):
+        ap.error("--conv-wgrad is an option of --profile with --fit kate")
     if args.profile:
         for cd in ("bfloat16", None):
-            profile(args.size, args.profile, cd, fit=args.fit)
+            profile(args.size, args.profile, cd, fit=args.fit, conv_wgrad=args.conv_wgrad)
     else:
         run_full(args.size, args.iters)
 

@@ -1,29 +1,42 @@
-// Hopper kernel of the fused 2x-upsample -> 3x3-conv decoder seam's weight
-// gradient (K3), bound through a plain C interface (ctypes) by
-// dip_tpu_torch/ops/hopper_up_conv.py, which also holds its plain PyTorch
-// version `wgrad_plain` and the split plan `wgrad_plan`:
+// Hopper kernel of two weight gradients that compute one function, bound
+// through a plain C interface (ctypes):
 //
-//   wgrad  xp (N,h+2,w+2,C) bf16, dzq (N,h,w,4F) bf16 -> de (3,3,C,4F)
+//   K3, the fused 2x-upsample -> 3x3-conv decoder seam's weight gradient
+//       (dip_tpu_torch/ops/hopper_up_conv.py, plain version `wgrad_plain`),
+//       xp (N,h+2,w+2,C) bf16, dzq (N,h,w,4F) bf16 -> de (3,3,C,4F);
+//   K5 in bf16, the weight gradient of a stride-1 3x3 conv
+//       (dip_tpu_torch/ops/hopper_wgrad.py, plain version
+//       `wgrad3x3_s1_plain`), x (N,h+2,w+2,Ci) bf16 padded by one pixel,
+//       g (N,h,w,Co) bf16 -> dW (3,3,Ci,Co) f32.
 //
-// de[d, g, c, k] = sum_{n,i,j} xp[n, i+d, j+g, c] * dzq[n, i, j, k], bf16
-// products summed in f32, stored in de's dtype (bf16 or f32). The wrapper
-// rounds an f32 xp to bf16 once before the launch (the operands are bf16 in
-// both modes, as the TPU kernel's mixed mode), so one bf16 main loop serves
-// both dtypes.
+// out[d, g, c, k] = sum_{n,i,j} x[n, i+d, j+g, c] * dz[n, i, j, k]: the
+// weight gradient of a VALID 3x3 conv on a padded input, with `cols` output
+// columns (4F phase columns for K3, Co for K5). bf16 products summed in
+// f32, stored in out's dtype (bf16 or f32). Both split plans are
+// hopper_up_conv.wgrad3x3_plan (K3's is wgrad_plan, cols = 4F). K3's
+// wrapper rounds an f32 xp to bf16 once before the launch (the operands are
+// bf16 in both modes, as the TPU kernel's mixed mode), so one bf16 main loop
+// serves both dtypes; K5 in f32 stays true f32 in wgrad.cu.
 //
 // Replaces _wgrad_kernel (dip_tpu/ops/pallas_up_conv.py:336, launched at
-// :369). The TPU kernel keeps one f32 accumulator resident across a
-// sequential grid; Hopper blocks run in no order, so the N*h*w reduction is
-// split: each block sums its split's pixels into its own f32 workspace slab,
-// and a second pass adds the slabs in split order. No atomics: the result
-// is deterministic, and the number of splits depends on the shape alone.
+// :369) and, in bf16, _wgrad3x3_kernel (dip_tpu/ops/pallas_wgrad.py:88,
+// launched by wgrad3x3_s1 at :153). The TPU kernels keep one f32
+// accumulator resident across a sequential grid; Hopper blocks run in no
+// order, so the N*h*w reduction is split: each block sums its split's pixels
+// into its own f32 workspace slab, and a second pass adds the slabs in split
+// order. No atomics: the result is deterministic, and the number of splits
+// depends on the shape alone.
 //
 // Bound at the flagship's top seam (N=1, h=w=256, C=F=128): 2*N*h*w*9*C*4F
 // = 77.3 GFLOP, 78 us at 989 TFLOP/s dense bf16, against 85 MB moved (xp
 // once, dzq once, de once), 25 us at 3.35 TB/s: compute-bound. The
 // workspace round trip (11 splits x 2.36 MB each way) adds about 16 us.
+// K5 at the top of an inpainting 'kate' fit (x (1,514,514,128), g
+// (1,512,512,128)) is the same 77.3 GFLOP on the same 264 blocks of 47
+// pixel tiles each (44 splits of 6 block kinds against K3's 11 of 24), with
+// a workspace of 44 x 0.59 MB.
 //
-// Design: a GEMM per tap, M = C channels, N = 4F phase columns, K = pixels,
+// Design: a GEMM per tap, M = C channels, N = `cols` columns, K = pixels,
 // on mma.sync m16n8k16 (bf16 in, f32 sums). What each part does about the
 // faults of the first version (one tap a block, WMMA fragments, plain
 // synchronous staging, f32 converted while staging):
@@ -37,7 +50,7 @@
 //  2. Asynchronous copies. 16-byte cp.async.cg with a zero-fill source size
 //     at the ragged edge, into a ring of three stages, so the copies of
 //     tile t+2 run under the products of tile t. One __syncthreads a tile.
-//     Where C or 4F is not a multiple of 8, or xp or dzq is not 16-byte
+//     Where C or cols is not a multiple of 8, or x or dz is not 16-byte
 //     aligned, the launcher picks a synchronous masked staging (kAsync =
 //     false) in the same kernel.
 //  3. Tensor cores without bank conflicts. Both operands come through
@@ -48,8 +61,12 @@
 //     rows of every 8x8 matrix fall in eight distinct 16-byte bank groups.
 //  4. No conversion in the loop. x enters as bf16 (the wrapper's one
 //     rounding of an f32 xp), so the staging is a plain 16-byte copy.
-// Warps whose channels or columns lie wholly past C or 4F skip the products,
-// and so do the pixel rows of a tile past h (the small 'library' seams).
+// Warps whose channels or columns lie wholly past C or cols skip the
+// products, and so do the pixel rows of a tile past h (the small 'library'
+// seams). A slab's rows have a pitch of cols rounded up to 4 (4F itself for
+// K3), so its f32 pairs stay whole and 8-byte aligned; where that pitch is
+// not cols (K5 with Co off 4), a second pass of one value a thread writes
+// the dense result in place of the four-wide one.
 // Shared memory: 166,656 bytes a block, one block (eight warps) an SM.
 // Later work (not here): wgmma (the tap-shifted x rows have a pitch of one
 // pixel, which no wgmma shared-memory descriptor takes, so A would come from
@@ -125,13 +142,14 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], 
 
 // Block (blockIdx.x = (channel tile * tiles_k + column tile) * 3 + d, split
 // blockIdx.y) sums pixel tiles [split * per, min((split + 1) * per, tiles))
-// of the three taps (d, 0..2) into slab `split` of ws (splits, 9, C, 4F).
-// Tile t is image t / (tiles_h * tiles_w), then row-major 8x16 tiles.
+// of the three taps (d, 0..2) into slab `split` of ws (splits, 9, C, ld),
+// ld = cols rounded up to 4. Tile t is image t / (tiles_h * tiles_w), then
+// row-major 8x16 tiles.
 template <bool kAsync>
 __global__ void __launch_bounds__(THREADS, 1)
 up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ dz,
-                         float* __restrict__ ws, int h, int w, int c, int f4, int tiles_k,
-                         int tiles_w, int per_img, int tiles, int per) {
+                         float* __restrict__ ws, int h, int w, int c, int cols, int ld,
+                         int tiles_k, int tiles_w, int per_img, int tiles, int per) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);  // [STAGES][x window | dz tile]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -143,8 +161,8 @@ up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ d
   const int t_begin = split * per;
   const int count = min(per, tiles - t_begin);
   const int hp = h + 2, wp = w + 2;
-  // a warp whose channels or columns all lie past C or 4F has nothing to sum
-  const bool live = c0 + warp_m * 32 < c && n0 + warp_n * 32 < f4;
+  // a warp whose channels or columns all lie past C or cols has nothing to sum
+  const bool live = c0 + warp_m * 32 < c && n0 + warp_n * 32 < cols;
 
   // pixel tile t: the x window (rows r0+d.., columns s0..s0+17) and dz
   auto load_tile = [&](int t, bf16* st) {
@@ -162,18 +180,18 @@ up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ d
       else
         stage8_sync(src, ok ? min(8, c - ch) : 0, dst);
     }
-    const bf16* db = dz + ((size_t)b * h + r0) * w * f4;
+    const bf16* db = dz + ((size_t)b * h + r0) * w * cols;
     bf16* ds = st + X_ELEMS;
     for (int i = tid; i < BP * (BK / 8); i += THREADS) {
       const int px = i / (BK / 8), n8 = (i % (BK / 8)) * 8;
       const int rr = px / TW, cc = s0 + px % TW, col = n0 + n8;
-      const bool ok = r0 + rr < h && cc < w && col < f4;
-      const bf16* src = ok ? db + ((size_t)rr * w + cc) * f4 + col : dz;
+      const bool ok = r0 + rr < h && cc < w && col < cols;
+      const bf16* src = ok ? db + ((size_t)rr * w + cc) * cols + col : dz;
       bf16* dst = ds + px * D_PITCH + n8;
       if (kAsync)
         cp_async16(dst, src, ok);
       else
-        stage8_sync(src, ok ? min(8, f4 - col) : 0, dst);
+        stage8_sync(src, ok ? min(8, cols - col) : 0, dst);
     }
   };
 
@@ -243,25 +261,27 @@ up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ d
   }
   cp_async_wait<0>();
 
-  // the sums to this split's slab, two f32 a store; 4F is a multiple of 4,
-  // so a pair is in range whenever its first column is
+  // the sums to this split's slab, two f32 a store at row pitch ld (cols
+  // rounded up to 4), so a pair lies in the row whenever its first column is
+  // in range; its second lies past cols only where cols is odd, and is then
+  // the zero sum of a zero-filled column, in the row's padding
   if (!live) return;
   const int qrow = lane >> 2, qcol = (lane & 3) * 2;
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
-    float* slab = ws + ((size_t)split * 9 + 3 * d + g) * c * f4;
+    float* slab = ws + ((size_t)split * 9 + 3 * d + g) * c * ld;
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
       const int ch = c0 + warp_m * 32 + mi * 16 + qrow;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int col = n0 + warp_n * 32 + nt * 8 + qcol;
-        if (col >= f4) continue;
+        if (col >= cols) continue;
         if (ch < c)
-          *reinterpret_cast<float2*>(slab + (size_t)ch * f4 + col) =
+          *reinterpret_cast<float2*>(slab + (size_t)ch * ld + col) =
               make_float2(acc[g][mi][nt][0], acc[g][mi][nt][1]);
         if (ch + 8 < c)
-          *reinterpret_cast<float2*>(slab + (size_t)(ch + 8) * f4 + col) =
+          *reinterpret_cast<float2*>(slab + (size_t)(ch + 8) * ld + col) =
               make_float2(acc[g][mi][nt][2], acc[g][mi][nt][3]);
       }
     }
@@ -276,8 +296,9 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(q);
 }
 
-// Second pass: de = the slabs' sum, in split order, four values a thread
-// (9*C*4F is a multiple of 4), rounded once to de's dtype.
+// Second pass where ld = cols: out = the slabs' sum, in split order, four
+// values a thread (9*C*cols is then a multiple of 4), rounded once to out's
+// dtype.
 template <typename T>
 __global__ void up_conv_wgrad_sum_kernel(const float4* __restrict__ ws, T* __restrict__ de,
                                          int splits, size_t quads) {
@@ -294,58 +315,97 @@ __global__ void up_conv_wgrad_sum_kernel(const float4* __restrict__ ws, T* __res
   store4(de + 4 * i, s);
 }
 
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// Second pass where ld > cols (cols off 4): out (9*C rows of cols, dense) =
+// the slabs' sum over rows of pitch ld, in split order, one value a thread.
+template <typename T>
+__global__ void up_conv_wgrad_sum_rows_kernel(const float* __restrict__ ws, T* __restrict__ out,
+                                              int splits, int cols, int ld, size_t total) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const size_t at = i / cols * ld + i % cols, slab = total / cols * ld;
+  float s = ws[at];
+  for (int sp = 1; sp < splits; ++sp) s += ws[(size_t)sp * slab + at];
+  store1(out + i, s);
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <bool kAsync>
-int launch_mma(const bf16* xp, const bf16* dz, float* ws, int n, int h, int w, int c, int f4,
-               int splits, int per, cudaStream_t st) {
+int launch_mma(const bf16* x, const bf16* dz, float* ws, int n, int h, int w, int c, int cols,
+               int ld, int splits, int per, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(up_conv_wgrad_mma_kernel<kAsync>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_c = (c + BC - 1) / BC, tiles_k = (f4 + BK - 1) / BK;
+  const int tiles_c = (c + BC - 1) / BC, tiles_k = (cols + BK - 1) / BK;
   const int tiles_w = (w + TW - 1) / TW, per_img = ((h + TH - 1) / TH) * tiles_w;
   dim3 grid(tiles_c * tiles_k * 3, splits);
   up_conv_wgrad_mma_kernel<kAsync><<<grid, THREADS, kSmem, st>>>(
-      xp, dz, ws, h, w, c, f4, tiles_k, tiles_w, per_img, n * per_img, per);
+      x, dz, ws, h, w, c, cols, ld, tiles_k, tiles_w, per_img, n * per_img, per);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_sum(const float* ws, void* de, int splits, int c, int f4, cudaStream_t st) {
-  const size_t quads = (size_t)9 * c * f4 / 4;
+int launch_sum(const float* ws, void* out, int splits, int c, int cols, int ld, cudaStream_t st) {
   const int threads = 256;
-  up_conv_wgrad_sum_kernel<T><<<(unsigned)((quads + threads - 1) / threads), threads, 0, st>>>(
-      reinterpret_cast<const float4*>(ws), static_cast<T*>(de), splits, quads);
+  if (ld == cols) {
+    const size_t quads = (size_t)9 * c * cols / 4;
+    up_conv_wgrad_sum_kernel<T><<<(unsigned)((quads + threads - 1) / threads), threads, 0, st>>>(
+        reinterpret_cast<const float4*>(ws), static_cast<T*>(out), splits, quads);
+  } else {
+    const size_t total = (size_t)9 * c * cols;
+    up_conv_wgrad_sum_rows_kernel<T>
+        <<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
+            ws, static_cast<T*>(out), splits, cols, ld, total);
+  }
   return (int)cudaGetLastError();
+}
+
+// Both entries: the products into the slabs, then the sum pass.
+int wgrad_mma(const void* x, const void* dz, void* ws, void* out, int n, int h, int w, int c,
+              int cols, int splits, int per, int out_is_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long tiles = (long long)n * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  if (n < 1 || h < 1 || w < 1 || c < 1 || cols < 1 || splits < 1 || per < 1 ||
+      (long long)splits * per < tiles || tiles > INT32_MAX || !aligned16(ws) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* db = static_cast<const bf16*>(dz);
+  float* wsf = static_cast<float*>(ws);
+  const int ld = (cols + 3) / 4 * 4;
+  // 16-byte copies need whole, aligned 8-element groups in x's and dz's rows
+  const int rc = c % 8 == 0 && cols % 8 == 0 && aligned16(x) && aligned16(dz)
+                     ? launch_mma<true>(xb, db, wsf, n, h, w, c, cols, ld, splits, per, st)
+                     : launch_mma<false>(xb, db, wsf, n, h, w, c, cols, ld, splits, per, st);
+  if (rc != 0) return rc;
+  return out_is_f32 ? launch_sum<float>(wsf, out, splits, c, cols, ld, st)
+                    : launch_sum<bf16>(wsf, out, splits, c, cols, ld, st);
 }
 
 }  // namespace
 
 // -- C interface ---------------------------------------------------------------
-// Launches on `stream`, does not synchronise, allocates nothing, and returns
+// Both launch on `stream`, do not synchronise, allocate nothing, and return
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue if the splits
-// of `per` pixel tiles do not cover the N*ceil(h/8)*ceil(w/16) tiles. xp and
-// dzq are bf16 (the wrapper rounds an f32 xp once); `de_is_f32` selects float
-// (else bf16) for de. `ws` holds splits * 9 * C * 4F floats; ws and de are
-// 16-byte aligned.
+// of `per` pixel tiles do not cover the N*ceil(h/8)*ceil(w/16) tiles. The
+// inputs are bf16 and dense; `*_is_f32` selects float (else bf16) for the
+// output. `ws` holds splits * 9 * C * ld floats, ld = the column count
+// rounded up to 4; ws and the output are 16-byte aligned.
+
+// K3: xp (N,h+2,w+2,C), dzq (N,h,w,4F) -> de (3,3,C,4F). The wrapper
+// rounds an f32 xp to bf16 once.
 extern "C" int dip_up_conv_wgrad(const void* xp, const void* dzq, void* ws, void* de, int n,
                                  int h, int w, int c, int f, int splits, int per,
                                  int de_is_f32, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long tiles = (long long)n * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
-  if (splits < 1 || per < 1 || (long long)splits * per < tiles || tiles > INT32_MAX ||
-      !aligned16(ws) || !aligned16(de))
-    return (int)cudaErrorInvalidValue;
-  const bf16* x = static_cast<const bf16*>(xp);
-  const bf16* dq = static_cast<const bf16*>(dzq);
-  float* wsf = static_cast<float*>(ws);
-  const int f4 = 4 * f;
-  // 16-byte copies need whole, aligned 8-element groups in xp's and dzq's rows
-  const int rc = c % 8 == 0 && f4 % 8 == 0 && aligned16(xp) && aligned16(dzq)
-                     ? launch_mma<true>(x, dq, wsf, n, h, w, c, f4, splits, per, st)
-                     : launch_mma<false>(x, dq, wsf, n, h, w, c, f4, splits, per, st);
-  if (rc != 0) return rc;
-  return de_is_f32 ? launch_sum<float>(wsf, de, splits, c, f4, st)
-                   : launch_sum<bf16>(wsf, de, splits, c, f4, st);
+  return wgrad_mma(xp, dzq, ws, de, n, h, w, c, 4 * f, splits, per, de_is_f32, stream);
+}
+
+// K5 in bf16: x (N,h+2,w+2,Ci) padded, g (N,h,w,Co) -> dw (3,3,Ci,Co).
+extern "C" int dip_wgrad3x3_mma(const void* x, const void* g, void* ws, void* dw, int n, int h,
+                                int w, int ci, int co, int splits, int per, int dw_is_f32,
+                                void* stream) {
+  return wgrad_mma(x, g, ws, dw, n, h, w, ci, co, splits, per, dw_is_f32, stream);
 }

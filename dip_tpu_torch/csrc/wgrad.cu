@@ -1,6 +1,8 @@
-// K5 and K6: convolution weight gradients, bound through a plain C
+// K5 in f32 and K6: convolution weight gradients, bound through a plain C
 // interface (ctypes) by dip_tpu_torch/ops/hopper_wgrad.py, which also holds
-// their plain PyTorch versions.
+// their plain PyTorch versions. K5 in bf16 (the 3x3 case on bf16 inputs)
+// runs in up_conv_wgrad.cu, on the seam weight gradient's mma.sync kernel,
+// which computes the same function; dip_wgrad refuses it.
 //
 //   dW[kh, kw, ci, co] = sum_{n, r, s} x[n, r + kh - halo, s + kw - halo, ci] * g[n, r, s, co]
 //
@@ -10,7 +12,8 @@
 // already padded by one pixel (Hx = H + 2), the port's reflect- and
 // replicate-padded convs. K6 is the 1x1 case (halo 0, Hx = H). Both take
 // any N (summed), H, W, Ci and Co, and the four element strides of x and of
-// g, so a channel-planar cotangent needs no copy first.
+// g, so a channel-planar cotangent needs no copy first. Here K5 runs in f32
+// only, K6 in both dtypes.
 //
 // Replaces _wgrad3x3_kernel (dip_tpu/ops/pallas_wgrad.py:88, launched by
 // wgrad3x3_s1 at :153) and _wgrad1x1_kernel (:184, launched by wgrad1x1 at
@@ -21,18 +24,17 @@
 // own f32 workspace slab, and a second pass adds the slabs in split order.
 // No atomics: two runs give the same dW. This is the seam wgrad's scheme
 // (up_conv_wgrad.cu), generalised to strided inputs, any tap count and
-// halo, and true f32; the seam's kernel itself is left as it is.
+// halo, and true f32.
 //
 // Numerics. These kernels stand in for cuDNN's weight gradient, so:
-//  - bf16 inputs: nvcuda::wmma 16x16x16 bf16 products, f32 sums;
+//  - bf16 inputs (K6): nvcuda::wmma 16x16x16 bf16 products, f32 sums;
 //  - f32 inputs: f32 operands and f32 FMA sums (SIMT), no bf16 rounding and
 //    no TF32, the numerics class of cuDNN's f32 wgrad with TF32 off.
-// Bound: at the 512^2 128->128 3x3 conv, 77 GFLOP against 134 MB (bf16) of
-// x and g: tensor-core FLOPs in bf16, FMA throughput in f32. The 1x1
-// gradients are bound by device memory (one read of x and g); for narrow
-// outputs (Co <= 16: the 3-channel head, 4-channel skips) the output tile
-// is 16 wide, so the work and the re-reads of x are not spent on columns
-// that do not exist.
+// Bound: at the 512^2 128->128 3x3 conv in f32, 77 GFLOP of FMA against
+// 269 MB of x and g: operations. The 1x1 gradients are bound by device
+// memory (one read of x and g); for narrow outputs (Co <= 16: the 3-channel
+// head, 4-channel skips) the output tile is 16 wide, so the work and the
+// re-reads of x are not spent on columns that do not exist.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -292,7 +294,8 @@ int launch(const void* x, const void* g, void* ws, void* dw, const Geo& q, int s
 
 // -- C interface ---------------------------------------------------------------
 // Launches on `stream`, does not synchronise, allocates nothing, returns
-// cudaGetLastError() (0 on success). x and g are float (is_f32) or bf16; dw
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a bf16
+// 3x3 gradient (dip_wgrad3x3_mma's). x and g are float (is_f32) or bf16; dw
 // is (ks, ks, ci, co) float, dense; ws holds splits * ks*ks * ci_pad *
 // co_pad floats (dip_wgrad_tiles gives the padding); each split covers
 // per_split consecutive pixels of the N*h*w reduction.
@@ -301,6 +304,7 @@ extern "C" int dip_wgrad(const void* x, const void* g, void* ws, void* dw, int n
                          long long xs2, long long xs3, long long gs0, long long gs1,
                          long long gs2, long long gs3, int ks, int halo, int splits,
                          long long per_split, int is_f32, void* stream) {
+  if (ks == 3 && !is_f32) return (int)cudaErrorInvalidValue;
   const int tk = tile_k(is_f32, co);
   Geo q{n, h, w, hx, wx, ci, co, xs0, xs1, xs2, xs3, gs0, gs1, gs2, gs3, ks, halo,
         (co + tk - 1) / tk, (ci + TC - 1) / TC * TC, (co + tk - 1) / tk * tk, per_split};

@@ -109,6 +109,8 @@ def load() -> ctypes.CDLL:
     lib.dip_up_conv_dgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
     # xp, dzq, workspace, de, n, h, w, c, f, splits, tiles a split, f32, stream
     lib.dip_up_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
+    # x, g, workspace, dW, n, h, w, ci, co, splits, tiles a split, f32, stream
+    lib.dip_wgrad3x3_mma.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
     lib.dip_downsample.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [ptr]
     # x, out, n, h/2, w/2, c, x's 4 strides, in f32, out f32, stream
     lib.dip_s2d_pack.argtypes = [ptr, ptr] + [i32] * 4 + [i64] * 4 + [i32] * 2 + [ptr]
@@ -118,7 +120,7 @@ def load() -> ctypes.CDLL:
                               + [ptr])
     lib.dip_wgrad_tiles.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
     for fn in (lib.dip_up_conv_fwd, lib.dip_up_conv_dgrad, lib.dip_up_conv_wgrad,
-               lib.dip_downsample, lib.dip_s2d_pack,
+               lib.dip_wgrad3x3_mma, lib.dip_downsample, lib.dip_s2d_pack,
                lib.dip_wgrad, lib.dip_wgrad_tiles):
         fn.restype = i32
     _lib = lib

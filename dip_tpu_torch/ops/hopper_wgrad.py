@@ -1,19 +1,25 @@
 """Convolution weight gradients (K5, K6): their Hopper kernels, plain
 versions, and the autograd.Functions that use them.
 
-Counterpart of dip_tpu/ops/pallas_wgrad.py. The kernels live in
-`csrc/wgrad.cu`:
+Counterpart of dip_tpu/ops/pallas_wgrad.py:
 
   wgrad3x3_s1  x (N,Hx,Wx,Ci), g (N,H,W,Co) -> dW (3,3,Ci,Co) f32 of a
                stride-1 3x3 conv; halo=1: x unpadded (Hx = H), zero outside
                it; halo=0: x carries the conv's 1-pixel pad (Hx = H + 2)
   wgrad1x1     x (N,H,W,Ci), g (N,H,W,Co)  -> dW (1,1,Ci,Co) f32
 
-N is summed. The kernels take the inputs' strides, so neither input is
-copied first. They stand in for cuDNN's weight gradient: bf16 inputs run
-bf16 tensor-core products with f32 sums, f32 inputs true f32 (no TF32).
-The plain versions compute in f32 from the same inputs, so kernel and
-plain version differ only in the order of the f32 sums.
+N is summed. The kernels stand in for cuDNN's weight gradient: bf16
+inputs run bf16 tensor-core products with f32 sums, f32 inputs true f32
+(no TF32). The plain versions compute in f32 from the same inputs, so
+kernel and plain version differ only in the order of the f32 sums.
+
+In bf16, wgrad3x3_s1 runs the seam weight gradient's mma.sync kernel
+(`csrc/up_conv_wgrad.cu`, split as hopper_up_conv.wgrad3x3_plan says),
+which computes the same function on a padded x with Co columns. It takes
+NHWC-dense operands, so `_k5_operands` copies a channel-planar or
+otherwise strided x or g once, and pads x by one zero pixel for halo=1.
+In f32, and wgrad1x1 in both dtypes, run `csrc/wgrad.cu`, whose kernels
+take the inputs' strides, so neither input is copied first.
 
 `Conv3x3S1` and `Conv1x1` are the counterparts of `_conv3x3_s1p1` and
 `_conv1x1`: forward F.conv2d (cuDNN), data gradient cuDNN's
@@ -30,7 +36,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from dip_tpu_torch.ops import _build
+from dip_tpu_torch.ops import _build, hopper_up_conv
 
 LAUNCHES = {"wgrad3x3_s1": 0, "wgrad1x1": 0}
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -114,12 +120,43 @@ def _launch(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int) -> torch.Tenso
     return dw
 
 
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """t itself if it is NHWC-dense at a 16-byte aligned address, else one
+    dense copy of it."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _k5_operands(x: torch.Tensor, g: torch.Tensor, halo: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operands of the bf16 3x3 kernel: x (N,H+2,W+2,Ci) with its pixel
+    of padding (halo=1: one zero pixel added here) and g (N,H,W,Co), both
+    NHWC-dense and 16-byte aligned, each one copy at most."""
+    if halo:
+        x = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return _dense(x), _dense(g)
+
+
+def _launch3x3_bf16(x: torch.Tensor, g: torch.Tensor, halo: int) -> torch.Tensor:
+    xd, gd = _k5_operands(x, g, halo)
+    n, h, w, co = g.shape
+    ci = x.shape[3]
+    plan = hopper_up_conv.wgrad3x3_plan(n, h, w, ci, co)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, ci, co), dtype=torch.float32, device=x.device)
+    rc = _build.load().dip_wgrad3x3_mma(
+        xd.data_ptr(), gd.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, w, ci, co,
+        plan.splits, plan.tiles_per_split, 1, _build.stream())
+    _build.raise_on(rc, "wgrad 3x3 bf16")
+    return dw
+
+
 def wgrad3x3_s1(x: torch.Tensor, g: torch.Tensor, halo: int = 1) -> torch.Tensor:
     """dW (3,3,Ci,Co) f32 of a stride-1 3x3 conv (see the module docstring)."""
     _check(x, g, 3, halo)
     if _build.on_cpu(x=x, g=g):
         return wgrad3x3_s1_plain(x, g, halo)
-    dw = _launch(x, g, 3, halo)
+    dw = _launch3x3_bf16(x, g, halo) if x.dtype == torch.bfloat16 else _launch(x, g, 3, halo)
     LAUNCHES["wgrad3x3_s1"] += 1
     return dw
 

@@ -17,6 +17,7 @@ torch.set_num_threads(1)
 from chip_smoke import (FLAGSHIP_SEAMS, FWD_RAGGED, RAGGED_SEAM, TOL as CARD_TOL,  # noqa: E402
                         LIBRARY_SEAMS as CARD_LIBRARY_SEAMS, library_calls, seam_bound)
 from dip_tpu_torch.ops import hopper_up_conv as H  # noqa: E402
+from dip_tpu_torch.ops import hopper_wgrad as W  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 C = F = 128
@@ -291,6 +292,62 @@ def test_wgrad_split_plan(seam):
     assert H.wgrad_plan(n, h, w, c, f) == plan
     if seam == FLAGSHIP_SEAMS[-1]:
         assert plan.grid[0] * plan.grid[1] >= 2 * 132
+
+
+@pytest.mark.parametrize("seam", FLAGSHIP_SEAMS + [RAGGED_SEAM] + FWD_RAGGED + CARD_LIBRARY_SEAMS)
+def test_wgrad_plan_is_the_3x3_plan_over_4f_columns(seam):
+    """K3's plan is the plan of the kernel it shares with the bf16 K5, over
+    the seam's 4F phase columns: every K3 launch is sized as before."""
+    n, h, w, c, f = seam
+    assert H.wgrad_plan(n, h, w, c, f) == H.wgrad3x3_plan(n, h, w, c, 4 * f)
+
+
+# the bf16 K5 launches of an inpainting 'kate' step at 512^2, (N, H, W, Ci,
+# Co) of g (x is (N, H+2, W+2, Ci)): each of the five scales' stride-1 down
+# conv and the 3x3 skip part of its decoder conv; then two ragged ones
+KATE_K5 = [(1, r, r, 128, 128) for r in (512, 256, 256, 128, 128, 64, 64, 32, 32, 16)]
+
+
+@pytest.mark.parametrize("shape", KATE_K5 + [(2, 19, 23, 20, 12), (1, 10, 13, 5, 3)])
+def test_wgrad3x3_split_plan(shape):
+    """wgrad3x3_plan, which sizes every bf16 K5 launch: its splits sum the
+    N*H*W pixels once in whole 8x16 pixel tiles, at most one split for
+    every six tiles, on no more blocks than two waves of the H100's 132 SMs
+    (one block an SM) and one split's rounding; the workspace is one f32
+    (9, Ci, Co rounded up to 4) slab a split."""
+    n, h, w, ci, co = shape
+    plan = H.wgrad3x3_plan(n, h, w, ci, co)
+    tiles = n * -(-h // 8) * -(-w // 16)
+    assert plan.tiles == tiles
+    assert (plan.splits - 1) * plan.tiles_per_split < tiles <= plan.splits * plan.tiles_per_split
+    assert sum(plan.pixels) == n * h * w and len(plan.pixels) == plan.splits
+    assert plan.splits <= -(-tiles // 6)
+    blocks = -(-ci // 64) * -(-co // 128) * 3
+    assert plan.grid == (blocks, plan.splits)
+    assert blocks * (plan.splits - 1) < 2 * 132
+    assert plan.workspace == (plan.splits, 9, ci, -(-co // 4) * 4)
+    if shape == KATE_K5[0]:
+        # the top 'kate' shape: 6 block kinds x 44 splits of 47 tiles, 26 MB
+        assert (plan.grid, plan.tiles_per_split) == ((6, 44), 47)
+        assert 4 * np.prod(plan.workspace) == pytest.approx(26e6, rel=0.01)
+
+
+@pytest.mark.parametrize("seam", [(1, 8, 16, 16, 8), (2, 7, 9, 5, 3), (1, 12, 10, 20, 7)])
+def test_wgrad_plain_is_the_3x3_weight_gradient(seam):
+    """The identity that lets one kernel serve K3 and K5: the seam's weight
+    gradient is the VALID 3x3 conv weight gradient of xp against the
+    phase-major dzq (K5's plain version at halo 0), Co = 4F; C and 4F off 8
+    in the second and third case. xp is f32 with bf16-representable values
+    and dzq bf16, so wgrad_plain's rounding of its operands changes nothing."""
+    n, h, w, c, f = seam
+    rng = np.random.default_rng(sum(seam))
+    xp = torch.from_numpy(rng.normal(size=(n, h + 2, w + 2, c)).astype(np.float32))
+    xp = xp.to(torch.bfloat16).float()
+    dzq = torch.from_numpy(rng.normal(size=(n, h, w, 4 * f)).astype(np.float32)).to(torch.bfloat16)
+    got = H.wgrad_plain(xp, dzq)
+    want = W.wgrad3x3_s1_plain(xp, dzq.float(), halo=0)
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    assert _rel(got.numpy(), want.numpy()) < 1e-6
 
 
 # the seams chip_smoke.py holds K2 to, and one whose single split fills

@@ -55,6 +55,26 @@ def test_wgrad3x3_plain_matches_pallas(jx, h, w, ci, co):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,w,ci,co", [(16, 24, 8, 16), (8, 10, 20, 12)])
+def test_wgrad3x3_plain_halo0_matches_pallas(jx, h, w, ci, co, dtype):
+    """The plain version with halo=0 on the zero-padded x (the operands of
+    the bf16 kernel, which takes x padded) against the Pallas kernel on the
+    unpadded x, in both dtypes; Ci and Co off 8 in the second case."""
+    jax, pw = jx
+    jnp = jax.numpy
+    t = getattr(torch, dtype)
+    x = torch.from_numpy(_normal((1, h, w, ci), 14)).to(t)
+    g = torch.from_numpy(_normal((1, h, w, co), 15)).to(t)
+    want = _pallas(pw.wgrad3x3_s1, jnp.asarray(x[0].float().numpy(), getattr(jnp, dtype)),
+                   jnp.asarray(g[0].float().numpy(), getattr(jnp, dtype)))
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    got = W.wgrad3x3_s1_plain(xp, g, halo=0)
+    assert tuple(got.shape) == want.shape and got.dtype == torch.float32
+    assert _max_rel(got.numpy(), want) < {"float32": 2e-4, "bfloat16": 1e-3}[dtype]
+    torch.testing.assert_close(got, W.wgrad3x3_s1_plain(x, g, halo=1), rtol=0, atol=0)
+
+
 def test_wgrad1x1_plain_matches_pallas(jx):
     jax, pw = jx
     x, g = _normal((1, 32, 32, 8), 2), _normal((1, 32, 32, 16), 3)
@@ -208,6 +228,69 @@ def test_conv_wgrad_values_are_checked():
             Conv(4, 4, 3)(torch.zeros(1, 4, 4, 4), conv_wgrad=bad)
     with pytest.raises(ValueError, match="downsample_mode"):
         Conv(4, 4, 3, 2, downsample_mode="bicubic")
+
+
+def _planar(shape, seed, dtype=torch.bfloat16):
+    """An NHWC view of an NCHW-contiguous tensor (the layout cuDNN hands back)."""
+    n, h, w, c = shape
+    return torch.from_numpy(_normal((n, c, h, w), seed)).to(dtype).permute(0, 2, 3, 1)
+
+
+def test_k5_operands_pass_dense_tensors_through():
+    """NHWC-dense bf16 x and g come back as themselves: no copy."""
+    x = torch.from_numpy(_normal((2, 10, 12, 8), 16)).to(torch.bfloat16)
+    g = torch.from_numpy(_normal((2, 8, 10, 16), 17)).to(torch.bfloat16)
+    xd, gd = W._k5_operands(x, g, 0)
+    assert xd is x and gd is g
+
+
+@pytest.mark.parametrize("layout", ["planar", "w slice", "channel slice"])
+def test_k5_operands_copy_strided_tensors_once(layout):
+    """Channel-planar and sliced views come back NHWC-dense, 16-byte
+    aligned, with the same values."""
+    if layout == "planar":
+        x, g = _planar((2, 10, 12, 8), 18), _planar((2, 8, 10, 16), 19)
+    elif layout == "w slice":
+        x = torch.from_numpy(_normal((2, 10, 15, 8), 18)).to(torch.bfloat16)[:, :, 1:13]
+        g = torch.from_numpy(_normal((2, 8, 13, 16), 19)).to(torch.bfloat16)[:, :, 2:12]
+    else:
+        x = torch.from_numpy(_normal((2, 10, 12, 11), 18)).to(torch.bfloat16)[..., 3:]
+        g = torch.from_numpy(_normal((2, 8, 10, 20), 19)).to(torch.bfloat16)[..., 4:]
+    assert not x.is_contiguous() and not g.is_contiguous()
+    xd, gd = W._k5_operands(x, g, 0)
+    for got, want in ((xd, x), (gd, g)):
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert got.data_ptr() != want.data_ptr()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "planar"])
+def test_k5_operands_zero_pad_for_halo1(layout):
+    """halo=1: x comes back NHWC-dense with one zero pixel around it."""
+    if layout == "planar":
+        x, g = _planar((1, 7, 9, 5), 20), _planar((1, 7, 9, 3), 21)
+    else:
+        x = torch.from_numpy(_normal((1, 7, 9, 5), 20)).to(torch.bfloat16)
+        g = torch.from_numpy(_normal((1, 7, 9, 3), 21)).to(torch.bfloat16)
+    xd, gd = W._k5_operands(x, g, 1)
+    assert tuple(xd.shape) == (1, 9, 11, 5) and xd.is_contiguous()
+    assert torch.equal(xd[:, 1:-1, 1:-1], x)
+    ring = xd.clone()
+    ring[:, 1:-1, 1:-1] = 0
+    assert not ring.any()
+    assert gd.is_contiguous() and torch.equal(gd, g)
+    assert _max_rel(W.wgrad3x3_s1_plain(xd, gd, 0), W.wgrad3x3_s1_plain(x, g, 1)) < 1e-6
+
+
+@pytest.mark.parametrize("dtype,want_ms", [(torch.bfloat16, 77.3e9 / 989e12 * 1e3),
+                                           (torch.float32, 77.3e9 / 67e12 * 1e3)])
+def test_wgrad_bound_at_the_top_kate_shape(dtype, want_ms):
+    """Phase 3's bound of the 3x3 weight gradient at x (1,514,514,128), g
+    (1,512,512,128): 77.3 GFLOP at the dtype's peak outweighs its bytes."""
+    from chip_smoke import wgrad_bound
+
+    ms, by = wgrad_bound(3, (1, 514, 514, 128), (1, 512, 512, 128), dtype)
+    assert by == "operations" and ms == pytest.approx(want_ms, rel=1e-3)
 
 
 @pytest.mark.cuda
