@@ -20,9 +20,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      box, preserve_size=False), with times; the s2d pack (bitwise) at the
      five 'kate' seam cotangents, NHWC and channel-planar, and ragged; the
      3x3 and 1x1 weight-gradient kernels at the 'kate' shapes in bf16 and
-     f32, NHWC and channel-planar, launched twice and bitwise equal, with
-     times beside their plain versions' and cuDNN's (the bf16 3x3's with
-     the time of its operands' layout copies, which its time includes);
+     f32, NHWC and channel-planar, and at ragged and narrow shapes,
+     launched twice and bitwise equal, with times beside their plain
+     versions' and cuDNN's (bf16 with the time of its operands' layout
+     copies, which its time includes);
   4. small-input reference: a 2-scale 128-channel skip net, forward and
      gradients on the card against the same net on the CPU: under an MSE
      at full resolution, and under the SR loss (x4 downsample, MSE at LR)
@@ -46,7 +47,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
 The last three lines are the card line, a JSON object of the kernels (each
 with its launches on a main path, error, times, and the bound of this
 run's shapes on an H100: bytes at 3.35 TB/s against operations at 989
-TFLOP/s bf16 or 67 TFLOP/s f32 FMA), and {"ok": true, "device": {...}}.
+TFLOP/s bf16 or 67 TFLOP/s f32 FMA; the weight gradients' rows give their
+bf16 figures as the row's own, their f32 figures under "f32" and each
+dtype's source under "sources"), and {"ok": true, "device": {...}}.
 Without a CUDA device it exits 1 at once.
 """
 
@@ -90,11 +93,13 @@ KERNELS = {
 }
 DOWNSAMPLE = ("dip_tpu_torch/csrc/resample.cu", "dip_tpu/ops/pallas_resample.py:119")
 S2D = ("dip_tpu_torch/csrc/s2d.cu", "dip_tpu/ops/pallas_s2d.py:101")
-# the bf16 3x3 gradient (the kernels line's row) runs the seam wgrad's
-# kernel; in f32 it runs csrc/wgrad.cu
-WGRAD = {"wgrad3x3_s1": ("dip_tpu_torch/csrc/up_conv_wgrad.cu",
-                         "dip_tpu/ops/pallas_wgrad.py:153"),
-         "wgrad1x1": ("dip_tpu_torch/csrc/wgrad.cu", "dip_tpu/ops/pallas_wgrad.py:210")}
+# the conv weight gradients: bf16 runs the seam wgrad's mma.sync kernel (the
+# kernels line's `source` and main figures), f32 runs csrc/wgrad.cu (the
+# row's `f32` figures)
+WGRAD_SOURCES = {torch.bfloat16: "dip_tpu_torch/csrc/up_conv_wgrad.cu",
+                 torch.float32: "dip_tpu_torch/csrc/wgrad.cu"}
+WGRAD = {"wgrad3x3_s1": (WGRAD_SOURCES[torch.bfloat16], "dip_tpu/ops/pallas_wgrad.py:153"),
+         "wgrad1x1": (WGRAD_SOURCES[torch.bfloat16], "dip_tpu/ops/pallas_wgrad.py:210")}
 # the seam cotangents of inpainting 'kate' at 512^2, (N, 2h, 2w, 128)
 KATE_DZ = [(1, 2 * h, 2 * h, 128) for h in (16, 32, 64, 128, 256)]
 S2D_RAGGED = [(2, 12, 20, 24), (1, 6, 10, 5)]
@@ -104,9 +109,10 @@ S2D_RAGGED = [(2, 12, 20, 24), (1, 6, 10, 5)]
 WGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # (kernel, halo, x shape, g shape, layout): the 'kate' fit's shapes at
 # 512^2 (its reflect-padded 3x3 convs at halo 0; the 1x1 skip, up and head
-# convs), a zero-padded 3x3, ragged batches, channel counts off 8 (the
-# synchronous staging) and off 4 (the one-value sum pass), and
-# channel-planar inputs
+# convs), a zero-padded 3x3 in both layouts, ragged batches, channel counts
+# off 8 (the synchronous and the 4-byte staging) and off 4 (the one-value
+# sum passes), narrow outputs (Co <= 16), channel-planar inputs, and N = 2
+# channel-planar
 WGRAD_CASES = [
     ("wgrad3x3_s1", 0, (1, 514, 514, 128), (1, 512, 512, 128), "nhwc"),
     ("wgrad3x3_s1", 0, (1, 514, 514, 128), (1, 512, 512, 128), "planar"),
@@ -116,12 +122,17 @@ WGRAD_CASES = [
     ("wgrad3x3_s1", 1, (2, 19, 23, 24), (2, 19, 23, 40), "nhwc"),
     ("wgrad3x3_s1", 1, (2, 19, 23, 20), (2, 19, 23, 12), "nhwc"),
     ("wgrad3x3_s1", 0, (1, 12, 15, 5), (1, 10, 13, 3), "planar"),
+    ("wgrad3x3_s1", 1, (1, 256, 256, 128), (1, 256, 256, 128), "planar"),
+    ("wgrad3x3_s1", 0, (2, 34, 70, 64), (2, 32, 68, 48), "planar"),
     ("wgrad1x1", 0, (1, 512, 512, 128), (1, 512, 512, 128), "nhwc"),
     ("wgrad1x1", 0, (1, 512, 512, 128), (1, 512, 512, 128), "planar"),
     ("wgrad1x1", 0, (1, 512, 512, 128), (1, 512, 512, 3), "nhwc"),
     ("wgrad1x1", 0, (1, 512, 512, 32), (1, 512, 512, 128), "nhwc"),
     ("wgrad1x1", 0, (1, 16, 16, 128), (1, 16, 16, 128), "nhwc"),
     ("wgrad1x1", 0, (3, 7, 9, 20), (3, 7, 9, 5), "nhwc"),
+    ("wgrad1x1", 0, (1, 33, 70, 20), (1, 33, 70, 12), "planar"),
+    ("wgrad1x1", 0, (1, 33, 70, 20), (1, 33, 70, 36), "planar"),
+    ("wgrad1x1", 0, (2, 64, 128, 128), (2, 64, 128, 128), "planar"),
 ]
 FIT_SIZE = 512  # the inpainting and restoration fits
 # the downsample kernel against its plain version: true f32 on both sides
@@ -426,9 +437,11 @@ def phase_s2d_parity(dev: torch.device) -> dict:
 def phase_wgrad_parity(dev: torch.device) -> dict:
     """The 3x3 and 1x1 weight-gradient kernels against their plain
     versions, with times beside the plain version's and cuDNN's own weight
-    gradient (what the kernel replaces on the path; TF32 off). The bf16 3x3
+    gradient (what the kernel replaces on the path; TF32 off). The bf16
     kernel takes NHWC-dense operands: its timed lines also give the time of
-    the copies that make them (part of its own time)."""
+    the copies that make them (part of its own time). Returns each kernel's
+    figures at the top 'kate' shape, NHWC: bf16 as the row's own, f32 under
+    "f32"."""
     from dip_tpu_torch.ops import hopper_wgrad as W
 
     stats = {k: {"max_abs_err": 0.0} for k in WGRAD}
@@ -441,14 +454,16 @@ def phase_wgrad_parity(dev: torch.device) -> dict:
             if ks == 3:
                 kern = lambda: W.wgrad3x3_s1(x, g, halo)  # noqa: E731
                 plain = lambda: W.wgrad3x3_s1_plain(x, g, halo)  # noqa: E731
+                copies = lambda: W._k5_operands(x, g, halo)  # noqa: E731
             else:
                 kern = lambda: W.wgrad1x1(x, g)  # noqa: E731
                 plain = lambda: W.wgrad1x1_plain(x, g)  # noqa: E731
+                copies = lambda: (W._pad8(x), W._pad8(g))  # noqa: E731
             w_size = (gs[3], xs[3], ks, ks)
 
             def cudnn():
-                return torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), w_size, g.permute(0, 3, 1, 2),
-                                            1, halo)
+                return torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), w_size,
+                                                   g.permute(0, 3, 1, 2), 1, halo)
 
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -466,14 +481,16 @@ def phase_wgrad_parity(dev: torch.device) -> dict:
                 ms, plain_ms, dnn_ms = time_ms(kern, reps), time_ms(plain, reps), time_ms(cudnn, reps)
                 line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                          f"cudnn {dnn_ms:.4f} ms")
-                if ks == 3 and dtype == torch.bfloat16:
-                    copy_ms = time_ms(lambda: W._k5_operands(x, g, halo), reps)
-                    line += f", of which the operands' layout copies {copy_ms:.4f} ms"
-                if (dtype, layout, xs[1], xs[3], gs[3]) == (torch.bfloat16, "nhwc", 514 if ks == 3
-                                                            else 512, 128, 128):
+                if dtype == torch.bfloat16:
+                    line += f", of which the operands' layout copies {time_ms(copies, reps):.4f} ms"
+                if (layout, xs[1], xs[3], gs[3]) == ("nhwc", 514 if ks == 3 else 512, 128, 128):
                     bound_ms, by = wgrad_bound(ks, xs, gs, dtype)
-                    stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=dnn_ms,
-                                       bound_ms=bound_ms, bound_by=by)
+                    fig = dict(ms=ms, plain_ms=plain_ms, library_ms=dnn_ms, bound_ms=bound_ms,
+                               bound_by=by)
+                    if dtype == torch.bfloat16:
+                        stats[name].update(fig)
+                    else:
+                        stats[name]["f32"] = fig
             log(line)
             if rel > WGRAD_TOL[dtype]:
                 raise RuntimeError(f"{name} disagrees with its plain version: "
@@ -818,7 +835,11 @@ def main() -> int:
                for k, src_rep in KERNELS.items()]
     kernels.append(_entry("downsample_fused", DOWNSAMPLE, sr_launches["downsample"], down))
     kernels.append(_entry("s2d_pack", S2D, launches["s2d_pack"], s2d))
-    kernels += [_entry(k, src_rep, masked_launches[k], wgrad[k]) for k, src_rep in WGRAD.items()]
+    for k, src_rep in WGRAD.items():
+        entry = _entry(k, src_rep, masked_launches[k], wgrad[k])
+        entry["sources"] = {str(d)[6:]: src for d, src in WGRAD_SOURCES.items()}
+        entry["f32"] = wgrad[k]["f32"]
+        kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,8 +16,9 @@ card it raises.
 masked MSE) on a synthetic image and mask of the same size in place of the
 flagship; `--conv-wgrad` routes its conv weight gradients through the
 port's kernels (the model's `conv_wgrad`, 'off' by default). The bf16 3x3
-gradient (K5) shares `up_conv_wgrad_mma_kernel` and its sum pass with the
-seam's (K3): the profile of the same fit with 'off' gives K3's share.
+and 1x1 gradients (K5, K6) share `up_conv_wgrad_mma_kernel` and its sum
+passes with the seam's (K3): the profile of the same fit with 'off' gives
+K3's share. In f32 both run `wgrad_f32_kernel` and `wgrad_sum_kernel`.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ REFERENCE_GPU_ESTIMATE_ITERS_PER_SEC = 10.0
 PORT_KERNELS = ("up_conv_fwd_mma_kernel", "up_conv_dgrad_mma_kernel", "up_conv_dgrad_sum_kernel",
                 "up_conv_wgrad_mma_kernel", "up_conv_wgrad_sum_kernel",
                 "up_conv_wgrad_sum_rows_kernel", "s2d_pack_kernel",
-                "wgrad_bf16_kernel", "wgrad_f32_kernel", "wgrad_reduce_kernel",
+                "wgrad_f32_kernel", "wgrad_sum_kernel",
                 "downsample_kernel")
 _BASELINE = Path(__file__).resolve().parents[1] / "results" / "torch_baseline.json"
 

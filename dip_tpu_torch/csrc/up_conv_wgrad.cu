@@ -1,4 +1,4 @@
-// Hopper kernel of two weight gradients that compute one function, bound
+// Hopper kernel of three weight gradients that compute one function, bound
 // through a plain C interface (ctypes):
 //
 //   K3, the fused 2x-upsample -> 3x3-conv decoder seam's weight gradient
@@ -7,25 +7,31 @@
 //   K5 in bf16, the weight gradient of a stride-1 3x3 conv
 //       (dip_tpu_torch/ops/hopper_wgrad.py, plain version
 //       `wgrad3x3_s1_plain`), x (N,h+2,w+2,Ci) bf16 padded by one pixel,
-//       g (N,h,w,Co) bf16 -> dW (3,3,Ci,Co) f32.
+//       g (N,h,w,Co) bf16 -> dW (3,3,Ci,Co) f32;
+//   K6 in bf16, the weight gradient of a 1x1 conv (the same module, plain
+//       version `wgrad1x1_plain`), x (N,h,w,Ci), g (N,h,w,Co) bf16 -> dW
+//       (1,1,Ci,Co) f32.
 //
-// out[d, g, c, k] = sum_{n,i,j} x[n, i+d, j+g, c] * dz[n, i, j, k]: the
-// weight gradient of a VALID 3x3 conv on a padded input, with `cols` output
-// columns (4F phase columns for K3, Co for K5). bf16 products summed in
-// f32, stored in out's dtype (bf16 or f32). Both split plans are
-// hopper_up_conv.wgrad3x3_plan (K3's is wgrad_plan, cols = 4F). K3's
-// wrapper rounds an f32 xp to bf16 once before the launch (the operands are
-// bf16 in both modes, as the TPU kernel's mixed mode), so one bf16 main loop
-// serves both dtypes; K5 in f32 stays true f32 in wgrad.cu.
+// out[d, g, c, k] = sum_{n,i,j} x[n, i+d, j+g, c] * dz[n, i, j, k] over NT x
+// NT taps: the weight gradient of a VALID NT x NT conv (NT = 3, or 1 for
+// K6), with `cols` output columns (4F phase columns for K3, Co for K5 and
+// K6). bf16 products summed in f32, stored in out's dtype (bf16 or f32). The
+// split plans are hopper_up_conv.wgrad_mma_plan (K3's is wgrad_plan, cols =
+// 4F; K5's wgrad3x3_plan). K3's wrapper rounds an f32 xp to bf16 once before
+// the launch (the operands are bf16 in both modes, as the TPU kernel's mixed
+// mode), so one bf16 main loop serves both dtypes. The operands are
+// NHWC-dense: the K5 and K6 wrappers copy a channel-planar input once. K5
+// and K6 in f32 stay true f32 in wgrad.cu.
 //
 // Replaces _wgrad_kernel (dip_tpu/ops/pallas_up_conv.py:336, launched at
 // :369) and, in bf16, _wgrad3x3_kernel (dip_tpu/ops/pallas_wgrad.py:88,
-// launched by wgrad3x3_s1 at :153). The TPU kernels keep one f32
-// accumulator resident across a sequential grid; Hopper blocks run in no
-// order, so the N*h*w reduction is split: each block sums its split's pixels
-// into its own f32 workspace slab, and a second pass adds the slabs in split
-// order. No atomics: the result is deterministic, and the number of splits
-// depends on the shape alone.
+// launched by wgrad3x3_s1 at :153) and _wgrad1x1_kernel (:184, launched by
+// wgrad1x1 at :210). The TPU kernels keep one f32 accumulator resident
+// across a sequential grid; Hopper blocks run in no order, so the N*h*w
+// reduction is split: each block sums its split's pixels into its own f32
+// workspace slab, and a second pass adds the slabs in split order. No
+// atomics: the result is deterministic, and the number of splits depends on
+// the shape alone.
 //
 // Bound at the flagship's top seam (N=1, h=w=256, C=F=128): 2*N*h*w*9*C*4F
 // = 77.3 GFLOP, 78 us at 989 TFLOP/s dense bf16, against 85 MB moved (xp
@@ -34,19 +40,18 @@
 // K5 at the top of an inpainting 'kate' fit (x (1,514,514,128), g
 // (1,512,512,128)) is the same 77.3 GFLOP on the same 264 blocks of 47
 // pixel tiles each (44 splits of 6 block kinds against K3's 11 of 24), with
-// a workspace of 44 x 0.59 MB.
+// a workspace of 44 x 0.59 MB. K6 at (1,512,512,128) -> 128 is 8.6 GFLOP
+// (9 us) against 134 MB (40 us): bound by bytes, on 2 block kinds x 64
+// splits of 32 tiles.
 //
 // Design: a GEMM per tap, M = C channels, N = `cols` columns, K = pixels,
-// on mma.sync m16n8k16 (bf16 in, f32 sums). What each part does about the
-// faults of the first version (one tap a block, WMMA fragments, plain
-// synchronous staging, f32 converted while staging):
-//  1. Reuse. A block owns the three taps of one kernel row d x 64 channels
-//     x 128 columns; eight warps own 32 x 32 of each tap (96 f32 sums a
+// on mma.sync m16n8k16 (bf16 in, f32 sums):
+//  1. Reuse. A block owns the NT taps of one kernel row d x 64 channels x
+//     128 columns; eight warps own 32 x 32 of each tap (32 NT f32 sums a
 //     thread). It walks its split's pixel tiles of 8 x 16 pixels. Per tile
-//     it stages one x window of 8 x 18 pixels (rows shifted by d) x 64
-//     channels and one dz tile of 128 pixels x 128 columns, once for all
-//     three taps: at the top seam about 0.85 GB through L2 against the first
-//     version's 1.8 GB.
+//     it stages one x window of 8 x (16 + NT - 1) pixels (rows shifted by
+//     d) x 64 channels and one dz tile of 128 pixels x 128 columns, once for
+//     all NT taps.
 //  2. Asynchronous copies. 16-byte cp.async.cg with a zero-fill source size
 //     at the ragged edge, into a ring of three stages, so the copies of
 //     tile t+2 run under the products of tile t. One __syncthreads a tile.
@@ -56,7 +61,7 @@
 //  3. Tensor cores without bank conflicts. Both operands come through
 //     ldmatrix.x4.trans, one row address a pixel: A = x^T from the window,
 //     where tap g is a column offset of the address (window pixel (i,
-//     j+g)), and B = dz, loaded once a 16-pixel k-step and used by all three
+//     j+g)), and B = dz, loaded once a 16-pixel k-step and used by all NT
 //     taps. Rows are padded by 16 bytes (x 144 B, dz 272 B), so the eight
 //     rows of every 8x8 matrix fall in eight distinct 16-byte bank groups.
 //  4. No conversion in the loop. x enters as bf16 (the wrapper's one
@@ -65,9 +70,10 @@
 // products, and so do the pixel rows of a tile past h (the small 'library'
 // seams). A slab's rows have a pitch of cols rounded up to 4 (4F itself for
 // K3), so its f32 pairs stay whole and 8-byte aligned; where that pitch is
-// not cols (K5 with Co off 4), a second pass of one value a thread writes
-// the dense result in place of the four-wide one.
-// Shared memory: 166,656 bytes a block, one block (eight warps) an SM.
+// not cols (Co off 4), a second pass of one value a thread writes the dense
+// result in place of the four-wide one.
+// Shared memory: 166,656 bytes a block for NT = 3, 159,744 for NT = 1; one
+// block (eight warps) an SM.
 // Later work (not here): wgmma (the tap-shifted x rows have a pitch of one
 // pixel, which no wgmma shared-memory descriptor takes, so A would come from
 // registers), TMA, persistent blocks with the reduction fused.
@@ -89,16 +95,22 @@ constexpr int BC = 64;                   // channels of a block's output tile
 constexpr int BK = 128;                  // phase columns of a block's output tile
 constexpr int THREADS = 256;             // 2 x 4 warps of 32 channels x 32 columns
 constexpr int STAGES = 3;                // pixel tiles in flight
-constexpr int WIN_COLS = TW + 2;         // the window's pixel columns, taps g = 0..2
-constexpr int WIN = TH * WIN_COLS;       // 144 pixels
 constexpr int X_PITCH = BC + 8;          // 72 bf16 = 144 B a window pixel
 constexpr int D_PITCH = BK + 8;          // 136 bf16 = 272 B a dz pixel
-constexpr int X_ELEMS = WIN * X_PITCH;
 constexpr int D_ELEMS = BP * D_PITCH;
-constexpr int STAGE_ELEMS = X_ELEMS + D_ELEMS;
-constexpr size_t kSmem = (size_t)STAGES * STAGE_ELEMS * sizeof(bf16);
-static_assert(X_ELEMS * sizeof(bf16) % 16 == 0 && STAGE_ELEMS * sizeof(bf16) % 16 == 0,
-              "stages and the dz tile start on 16-byte boundaries");
+
+// The tiles of the NT-tap form: NT = 3 (a kernel row of the 3x3 gradient)
+// stages a window of TW + 2 columns (taps g = 0..2), NT = 1 (the 1x1
+// gradient) one of TW columns.
+template <int NT>
+struct Win {
+  static constexpr int COLS = TW + NT - 1;  // 18 or 16 window columns
+  static constexpr int X_ELEMS = TH * COLS * X_PITCH;
+  static constexpr int STAGE_ELEMS = X_ELEMS + D_ELEMS;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE_ELEMS * sizeof(bf16);
+  static_assert(X_ELEMS * sizeof(bf16) % 16 == 0 && STAGE_ELEMS * sizeof(bf16) % 16 == 0,
+                "stages and the dz tile start on 16-byte boundaries");
+};
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -140,31 +152,34 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Block (blockIdx.x = (channel tile * tiles_k + column tile) * 3 + d, split
-// blockIdx.y) sums pixel tiles [split * per, min((split + 1) * per, tiles))
-// of the three taps (d, 0..2) into slab `split` of ws (splits, 9, C, ld),
-// ld = cols rounded up to 4. Tile t is image t / (tiles_h * tiles_w), then
-// row-major 8x16 tiles.
-template <bool kAsync>
+// Block (blockIdx.x = (channel tile * tiles_k + column tile) * NT + d,
+// split blockIdx.y) sums pixel tiles [split * per, min((split + 1) * per,
+// tiles)) of the NT taps (d, 0..NT-1) into slab `split` of ws (splits,
+// NT*NT, C, ld), ld = cols rounded up to 4. Tile t is image t / (tiles_h *
+// tiles_w), then row-major 8x16 tiles. x is (N, h+NT-1, w+NT-1, C).
+template <int NT, bool kAsync>
 __global__ void __launch_bounds__(THREADS, 1)
 up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ dz,
                          float* __restrict__ ws, int h, int w, int c, int cols, int ld,
                          int tiles_k, int tiles_w, int per_img, int tiles, int per) {
+  using Wn = Win<NT>;
+  constexpr int WIN_COLS = Wn::COLS, WIN = TH * WIN_COLS, X_ELEMS = Wn::X_ELEMS;
+  constexpr int STAGE_ELEMS = Wn::STAGE_ELEMS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);  // [STAGES][x window | dz tile]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int warp_m = warp >> 2, warp_n = warp & 3;
-  const int d = blockIdx.x % 3;
-  const int n0 = ((blockIdx.x / 3) % tiles_k) * BK;
-  const int c0 = (blockIdx.x / 3 / tiles_k) * BC;
+  const int d = blockIdx.x % NT;
+  const int n0 = ((blockIdx.x / NT) % tiles_k) * BK;
+  const int c0 = (blockIdx.x / NT / tiles_k) * BC;
   const int split = blockIdx.y;
   const int t_begin = split * per;
   const int count = min(per, tiles - t_begin);
-  const int hp = h + 2, wp = w + 2;
+  const int hp = h + NT - 1, wp = w + NT - 1;
   // a warp whose channels or columns all lie past C or cols has nothing to sum
   const bool live = c0 + warp_m * 32 < c && n0 + warp_n * 32 < cols;
 
-  // pixel tile t: the x window (rows r0+d.., columns s0..s0+17) and dz
+  // pixel tile t: the x window (rows r0+d.., columns s0..s0+WIN_COLS-1) and dz
   auto load_tile = [&](int t, bf16* st) {
     const int b = t / per_img, rem = t - b * per_img;
     const int r0 = (rem / tiles_w) * TH, s0 = (rem % tiles_w) * TW;
@@ -195,9 +210,9 @@ up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ d
     }
   };
 
-  float acc[3][2][4][4];  // [tap g][m16 tile][n8 tile][fragment]
+  float acc[NT][2][4][4];  // [tap g][m16 tile][n8 tile][fragment]
 #pragma unroll
-  for (int g = 0; g < 3; ++g)
+  for (int g = 0; g < NT; ++g)
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -242,7 +257,7 @@ up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ d
         for (int nj = 0; nj < 2; ++nj)
           ldsm_x4_trans(da + (kk * TW * D_PITCH + nj * 16) * (unsigned)sizeof(bf16), bq[nj]);
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
+        for (int g = 0; g < NT; ++g) {
           unsigned a[2][4];
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi)
@@ -268,8 +283,8 @@ up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ d
   if (!live) return;
   const int qrow = lane >> 2, qcol = (lane & 3) * 2;
 #pragma unroll
-  for (int g = 0; g < 3; ++g) {
-    float* slab = ws + ((size_t)split * 9 + 3 * d + g) * c * ld;
+  for (int g = 0; g < NT; ++g) {
+    float* slab = ws + ((size_t)split * NT * NT + NT * d + g) * c * ld;
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
       const int ch = c0 + warp_m * 32 + mi * 16 + qrow;
@@ -333,30 +348,32 @@ __global__ void up_conv_wgrad_sum_rows_kernel(const float* __restrict__ ws, T* _
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <bool kAsync>
+template <int NT, bool kAsync>
 int launch_mma(const bf16* x, const bf16* dz, float* ws, int n, int h, int w, int c, int cols,
                int ld, int splits, int per, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(up_conv_wgrad_mma_kernel<kAsync>,
+  constexpr size_t smem = Win<NT>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(up_conv_wgrad_mma_kernel<NT, kAsync>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmem);
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles_c = (c + BC - 1) / BC, tiles_k = (cols + BK - 1) / BK;
   const int tiles_w = (w + TW - 1) / TW, per_img = ((h + TH - 1) / TH) * tiles_w;
-  dim3 grid(tiles_c * tiles_k * 3, splits);
-  up_conv_wgrad_mma_kernel<kAsync><<<grid, THREADS, kSmem, st>>>(
+  dim3 grid(tiles_c * tiles_k * NT, splits);
+  up_conv_wgrad_mma_kernel<NT, kAsync><<<grid, THREADS, smem, st>>>(
       x, dz, ws, h, w, c, cols, ld, tiles_k, tiles_w, per_img, n * per_img, per);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_sum(const float* ws, void* out, int splits, int c, int cols, int ld, cudaStream_t st) {
+int launch_sum(const float* ws, void* out, int splits, int taps, int c, int cols, int ld,
+               cudaStream_t st) {
   const int threads = 256;
   if (ld == cols) {
-    const size_t quads = (size_t)9 * c * cols / 4;
+    const size_t quads = (size_t)taps * c * cols / 4;
     up_conv_wgrad_sum_kernel<T><<<(unsigned)((quads + threads - 1) / threads), threads, 0, st>>>(
         reinterpret_cast<const float4*>(ws), static_cast<T*>(out), splits, quads);
   } else {
-    const size_t total = (size_t)9 * c * cols;
+    const size_t total = (size_t)taps * c * cols;
     up_conv_wgrad_sum_rows_kernel<T>
         <<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
             ws, static_cast<T*>(out), splits, cols, ld, total);
@@ -364,7 +381,8 @@ int launch_sum(const float* ws, void* out, int splits, int c, int cols, int ld, 
   return (int)cudaGetLastError();
 }
 
-// Both entries: the products into the slabs, then the sum pass.
+// Every entry: the products into the slabs, then the sum pass.
+template <int NT>
 int wgrad_mma(const void* x, const void* dz, void* ws, void* out, int n, int h, int w, int c,
               int cols, int splits, int per, int out_is_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -378,34 +396,43 @@ int wgrad_mma(const void* x, const void* dz, void* ws, void* out, int n, int h, 
   const int ld = (cols + 3) / 4 * 4;
   // 16-byte copies need whole, aligned 8-element groups in x's and dz's rows
   const int rc = c % 8 == 0 && cols % 8 == 0 && aligned16(x) && aligned16(dz)
-                     ? launch_mma<true>(xb, db, wsf, n, h, w, c, cols, ld, splits, per, st)
-                     : launch_mma<false>(xb, db, wsf, n, h, w, c, cols, ld, splits, per, st);
+                     ? launch_mma<NT, true>(xb, db, wsf, n, h, w, c, cols, ld, splits, per, st)
+                     : launch_mma<NT, false>(xb, db, wsf, n, h, w, c, cols, ld, splits, per, st);
   if (rc != 0) return rc;
-  return out_is_f32 ? launch_sum<float>(wsf, out, splits, c, cols, ld, st)
-                    : launch_sum<bf16>(wsf, out, splits, c, cols, ld, st);
+  return out_is_f32 ? launch_sum<float>(wsf, out, splits, NT * NT, c, cols, ld, st)
+                    : launch_sum<bf16>(wsf, out, splits, NT * NT, c, cols, ld, st);
 }
 
 }  // namespace
 
 // -- C interface ---------------------------------------------------------------
-// Both launch on `stream`, do not synchronise, allocate nothing, and return
+// All launch on `stream`, do not synchronise, allocate nothing, and return
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue if the splits
 // of `per` pixel tiles do not cover the N*ceil(h/8)*ceil(w/16) tiles. The
 // inputs are bf16 and dense; `*_is_f32` selects float (else bf16) for the
-// output. `ws` holds splits * 9 * C * ld floats, ld = the column count
-// rounded up to 4; ws and the output are 16-byte aligned.
+// output. `ws` holds splits * taps * C * ld floats (taps 9, or 1 for K6),
+// ld = the column count rounded up to 4; ws and the output are 16-byte
+// aligned.
 
 // K3: xp (N,h+2,w+2,C), dzq (N,h,w,4F) -> de (3,3,C,4F). The wrapper
 // rounds an f32 xp to bf16 once.
 extern "C" int dip_up_conv_wgrad(const void* xp, const void* dzq, void* ws, void* de, int n,
                                  int h, int w, int c, int f, int splits, int per,
                                  int de_is_f32, void* stream) {
-  return wgrad_mma(xp, dzq, ws, de, n, h, w, c, 4 * f, splits, per, de_is_f32, stream);
+  return wgrad_mma<3>(xp, dzq, ws, de, n, h, w, c, 4 * f, splits, per, de_is_f32, stream);
 }
 
 // K5 in bf16: x (N,h+2,w+2,Ci) padded, g (N,h,w,Co) -> dw (3,3,Ci,Co).
 extern "C" int dip_wgrad3x3_mma(const void* x, const void* g, void* ws, void* dw, int n, int h,
                                 int w, int ci, int co, int splits, int per, int dw_is_f32,
                                 void* stream) {
-  return wgrad_mma(x, g, ws, dw, n, h, w, ci, co, splits, per, dw_is_f32, stream);
+  return wgrad_mma<3>(x, g, ws, dw, n, h, w, ci, co, splits, per, dw_is_f32, stream);
+}
+
+// K6 in bf16: x (N,h,w,Ci), g (N,h,w,Co) -> dw (1,1,Ci,Co); ws holds
+// splits * Ci * ld floats.
+extern "C" int dip_wgrad1x1_mma(const void* x, const void* g, void* ws, void* dw, int n, int h,
+                                int w, int ci, int co, int splits, int per, int dw_is_f32,
+                                void* stream) {
+  return wgrad_mma<1>(x, g, ws, dw, n, h, w, ci, co, splits, per, dw_is_f32, stream);
 }

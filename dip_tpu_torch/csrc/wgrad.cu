@@ -1,322 +1,482 @@
-// K5 in f32 and K6: convolution weight gradients, bound through a plain C
-// interface (ctypes) by dip_tpu_torch/ops/hopper_wgrad.py, which also holds
-// their plain PyTorch versions. K5 in bf16 (the 3x3 case on bf16 inputs)
-// runs in up_conv_wgrad.cu, on the seam weight gradient's mma.sync kernel,
-// which computes the same function; dip_wgrad refuses it.
+// K5 and K6 in f32: the weight gradients of a stride-1 3x3 conv and of a
+// 1x1 conv, true f32 (SIMT FMA), bound through a plain C interface (ctypes)
+// by dip_tpu_torch/ops/hopper_wgrad.py, which also holds their plain
+// PyTorch versions and the split plan (`f32_plan`). In bf16 both run the
+// seam weight gradient's mma.sync kernel in up_conv_wgrad.cu.
 //
-//   dW[kh, kw, ci, co] = sum_{n, r, s} x[n, r + kh - halo, s + kw - halo, ci] * g[n, r, s, co]
+//   dW[d, e, ci, co] = sum_{n, r, s} x[n, r + d - halo, s + e - halo, ci] * g[n, r, s, co]
 //
 // g (N, H, W, Co) is the cotangent of a stride-1 conv's output, x (N, Hx,
 // Wx, Ci) its input, zero outside (Hx, Wx). K5 is the 3x3 case: halo 1
 // takes x unpadded (Hx = H), the JAX package's wgrad3x3_s1; halo 0 takes x
 // already padded by one pixel (Hx = H + 2), the port's reflect- and
-// replicate-padded convs. K6 is the 1x1 case (halo 0, Hx = H). Both take
-// any N (summed), H, W, Ci and Co, and the four element strides of x and of
-// g, so a channel-planar cotangent needs no copy first. Here K5 runs in f32
-// only, K6 in both dtypes.
+// replicate-padded convs. K6 is the 1x1 case (halo 0, Hx = H). Both take any
+// N (summed), H, W, Ci and Co, and the four element strides of x and of g,
+// so a channel-planar input (the NHWC view of cuDNN's NCHW output) is read
+// where it lies, with no copy.
 //
 // Replaces _wgrad3x3_kernel (dip_tpu/ops/pallas_wgrad.py:88, launched by
 // wgrad3x3_s1 at :153) and _wgrad1x1_kernel (:184, launched by wgrad1x1 at
-// :210). The TPU kernels carry one resident f32 accumulator across a
-// sequential grid of row blocks. Hopper blocks run in no order, so the
-// N*H*W reduction is split: each block sums one slice of pixels for one
-// tap, one tile of input channels and one tile of output channels into its
-// own f32 workspace slab, and a second pass adds the slabs in split order.
-// No atomics: two runs give the same dW. This is the seam wgrad's scheme
-// (up_conv_wgrad.cu), generalised to strided inputs, any tap count and
-// halo, and true f32.
+// :210) in f32. The TPU kernels carry one resident f32 accumulator across a
+// sequential grid of row blocks; Hopper blocks run in no order, so the
+// N*H*W reduction is split: each block sums one slice of pixel tiles into
+// its own f32 workspace slab, and a second pass adds the slabs in split
+// order. No atomics: two launches give the same bits.
 //
-// Numerics. These kernels stand in for cuDNN's weight gradient, so:
-//  - bf16 inputs (K6): nvcuda::wmma 16x16x16 bf16 products, f32 sums;
-//  - f32 inputs: f32 operands and f32 FMA sums (SIMT), no bf16 rounding and
-//    no TF32, the numerics class of cuDNN's f32 wgrad with TF32 off.
-// Bound: at the 512^2 128->128 3x3 conv in f32, 77 GFLOP of FMA against
-// 269 MB of x and g: operations. The 1x1 gradients are bound by device
-// memory (one read of x and g); for narrow outputs (Co <= 16: the 3-channel
-// head, 4-channel skips) the output tile is 16 wide, so the work and the
-// re-reads of x are not spent on columns that do not exist.
+// Numerics: f32 operands, f32 fmaf sums, no TF32 and no bf16 rounding (the
+// class of cuDNN's f32 weight gradient with TF32 off).
+//
+// Bound: the 3x3 at the top of an inpainting 'kate' fit (x (1,514,514,128),
+// g (1,512,512,128)) is 77.3 GFLOP of FMA, 1.15 ms at 67 TFLOP/s, against
+// 269 MB moved: operations. An SM runs 128 FMA a clock but reads 32
+// floats a clock from shared memory, so a kernel that does fewer than 4 FMA
+// per float it reads there is bound by shared memory before the FMA pipes.
+//
+// Design (NT = 3 taps for K5, 1 for K6):
+//  1. Reuse. A block owns one kernel row d (its NT taps), 128 input
+//     channels and BK output columns. It walks its split's pixel tiles, each
+//     64 pixels of one image row, and stages for each tile one x window (the
+//     row shifted by d, 64 + NT - 1 columns: two columns of halo for K5) and
+//     one g tile, once for all NT taps. Outside x, g or Ci/Co the copies
+//     zero-fill, so halo 1 needs no padded copy of x.
+//  2. Register tiling. Thread (tc, tk) owns 8 channels x RK columns for each
+//     tap. A step of the main loop takes 4 g pixels j..j+3: it reads the 8
+//     channels of window pixels j+4..j+7 (K5 carries j..j+3 from the step
+//     before; K6 reads j..j+3) and the RK columns of the 4 g pixels from
+//     shared memory into registers, then runs 4 x NT x 8 x RK FMA. K5: RK =
+//     4, 96 sums, 384 FMA per 48 floats read (8 per float); K6: RK = 8, 64
+//     sums, 256 FMA per 64 floats (4 per float).
+//  3. Both layouts read where they lie. An operand whose pixels are
+//     contiguous along W (channel-planar: the NHWC view of an NCHW tensor)
+//     is staged [channel][pixel] by runs of 4, 2 or 1 pixels (16-, 8- or
+//     4-byte cp.async, as its strides and alignment allow: the reflect-
+//     padded x of width W + 2 takes 16 bytes on even rows, 8 on odd ones;
+//     a copy costs about an instruction slot of the SM whatever its width, so
+//     the widest one a row allows is taken); any other is staged
+//     [pixel][channel] by 16-byte runs of 4 channels where whole and aligned,
+//     else by element (a warp on 8 pixels x 4 channels). The main loop reads
+//     either layout (template flags), so nothing is copied first.
+//  4. A ring of three tile stages, one __syncthreads a tile: after it,
+//     each thread starts its copies of the tile two ahead (whose source
+//     offsets are computed once a tile), then runs the tile's 16 steps,
+//     unrolled by 4. (On an H100, spreading the copies over the steps, a
+//     quarter every 4th step, or unrolling by 1 or 2 read no faster.)
+//  5. Conflict-free shared reads: [pixel][channel] rows padded by 4 floats
+//     (a warp's x reads are two broadcasts, its g reads contiguous float4
+//     runs; RK = 8 splits a thread's columns into two runs of 4, 64 apart);
+//     [channel][pixel] rows of 68 floats, and a thread's channel-planar g
+//     columns tk + 16k, so the 16 float4 a warp reads fall in distinct banks.
+//  6. Narrow outputs (Co <= 16: the 3-channel head, 4- and 16-channel skips)
+//     take RK = 1, a 16-column tile, so no work is spent on columns that do
+//     not exist.
+// One block (256 threads) an SM; shared memory up to 208,896 B (K6).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <stddef.h>
 #include <stdint.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
 namespace {
 
-constexpr int TC = 64;            // input channels per block
-constexpr int BP = 64;            // pixels per stage, bf16
-constexpr int B_THREADS = 128;    // bf16: 4 warps, warp w owns channel rows 16w..16w+15
-constexpr int B_XLD = TC + 8;     // shared rows of the bf16 path, padded by 16 bytes
-constexpr int FP = 32;            // pixels per stage, f32
-constexpr int F_THREADS = 256;    // f32: 16 channel groups of 4 x 16 column groups
-constexpr int F_XLD = TC + 4;     // padded shared rows of the f32 path
+constexpr int TW = 64;            // pixels of a tile: 64 of one image row
+constexpr int TCG = 16;           // channel groups of a block
+constexpr int TKG = 16;           // column groups of a block
+constexpr int THREADS = TCG * TKG;
+constexpr int RC = 8;             // channels a thread
+constexpr int BC = RC * TCG;      // 128 channels a block
+constexpr int STAGES = 3;         // pixel tiles in flight
+constexpr int GROUP = 4;          // g pixels a step of the main loop
+constexpr int STEPS = TW / GROUP; // steps a tile
+constexpr int PP = 68;            // floats a channel row of a channel-planar stage (68/4 odd)
+
+// How an operand is staged: channel-major rows ([pixel][channel], NHWC
+// and other layouts) by 16-byte runs of 4 channels (VEC16) or by element
+// (ELEM); or channel-planar ([channel][pixel], where pixels of a row are
+// contiguous) by runs of 4, 2 or 1 pixels (PLANAR4/2/1).
+enum Copy { VEC16 = 0, ELEM = 1, PLANAR4 = 2, PLANAR2 = 3, PLANAR1 = 4 };
 
 struct Geo {
-  int n, h, w, hx, wx, ci, co;
+  int h, w, hx, wx, ci, co, halo, ld;
   long long xs0, xs1, xs2, xs3, gs0, gs1, gs2, gs3;
-  int ks, halo, tiles_k, ci_pad, co_pad;
-  long long per_split;
+  int tiles_w, per_img, tiles, per, tiles_k;
+  int x_copy, g_copy;  // Copy
 };
 
-__device__ __forceinline__ void set_zero(float* p) { *p = 0.0f; }
-__device__ __forceinline__ void set_zero(bf16* p) { *p = __float2bfloat16(0.0f); }
+template <int NT, int RK, bool XPL, bool GPL>
+struct Tile {
+  static constexpr int BK = RK * TKG;       // columns a block
+  static constexpr int WC = TW + NT - 1;    // window columns
+  static constexpr int WC4 = (WC + 3) / 4 * 4;  // ... staged, in whole runs of 4
+  static constexpr int XP = BC + 4;         // floats a window pixel ([pixel][channel])
+  static constexpr int GP = BK + 4;         // floats a g pixel ([pixel][column])
+  static constexpr int X_POS = NT == 3 ? PP : TW;  // staged pixels a planar channel row
+  static constexpr int X_ELEMS = XPL ? BC * PP : WC4 * XP;
+  static constexpr int STAGE = X_ELEMS + (GPL ? BK * PP : TW * GP);
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE * sizeof(float);
+  static_assert(XP % 4 == 0 && GP % 4 == 0 && X_ELEMS % 4 == 0 && STAGE % 4 == 0,
+                "rows and stages start on 16-byte boundaries");
+};
 
-// 8 elements src[0..valid) to shared dst, zero past `valid`; one vector
-// load when all 8 are valid and src is 16-byte aligned.
-__device__ __forceinline__ void stage8(const bf16* src, int valid, bf16* dst) {
-  if (valid == 8 && (reinterpret_cast<size_t>(src) & 15) == 0) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    return;
-  }
-  for (int t = 0; t < 8; ++t) {
-    if (t < valid) dst[t] = src[t];
-    else set_zero(dst + t);
-  }
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void stage8(const float* src, int valid, float* dst) {
-  if (valid == 8 && (reinterpret_cast<size_t>(src) & 15) == 0) {
-    reinterpret_cast<float4*>(dst)[0] = reinterpret_cast<const float4*>(src)[0];
-    reinterpret_cast<float4*>(dst)[1] = reinterpret_cast<const float4*>(src)[1];
-    return;
-  }
-  for (int t = 0; t < 8; ++t) dst[t] = t < valid ? src[t] : 0.0f;
+// 16, 8 or 4 bytes global -> shared, asynchronous; the first `bytes` are
+// read, the rest zero-filled
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
-
-// Stage a (P pixels) x (WIDTH channels from c0) tile into dst rows of `ld`
-// elements. off[pi] is pixel pi's element offset, -1 for a zero row;
-// `cs` the channel stride. With cs == 1 a thread moves 8 channels of one
-// pixel; otherwise one element, neighbouring threads on neighbouring
-// pixels (coalesced along W in a channel-planar tensor).
-template <typename T, int P, int WIDTH, int NT>
-__device__ __forceinline__ void stage(const T* __restrict__ src, const long long* off,
-                                      long long cs, int c0, int cn, T* dst, int ld) {
-  if (cs == 1) {
-    for (int i = threadIdx.x; i < P * (WIDTH / 8); i += NT) {
-      const int pi = i / (WIDTH / 8), c8 = (i % (WIDTH / 8)) * 8;
-      const long long o = off[pi];
-      const int valid = o >= 0 ? cn - (c0 + c8) : 0;
-      stage8(src + (valid > 0 ? o + c0 + c8 : 0), valid < 8 ? valid : 8, dst + pi * ld + c8);
-    }
-  } else {
-    for (int i = threadIdx.x; i < P * WIDTH; i += NT) {
-      const int pi = i % P, cc = i / P, ch = c0 + cc;
-      const long long o = off[pi];
-      if (o >= 0 && ch < cn) dst[pi * ld + cc] = src[o + ch * cs];
-      else set_zero(dst + pi * ld + cc);
-    }
-  }
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Offsets of the P pixels from p0 (threads 0..P-1): x's under tap (kh, kw),
-// -1 where the tap reads outside x; g's; both -1 past the split's end.
-template <int P>
-__device__ __forceinline__ void pixel_offsets(const Geo& q, long long p0, long long p_end,
-                                              int kh, int kw, long long* x_off,
-                                              long long* g_off) {
-  if (threadIdx.x >= P) return;
-  const long long p = p0 + threadIdx.x;
-  long long xo = -1, go = -1;
-  if (p < p_end) {
-    const long long hw = (long long)q.h * q.w;
-    const long long b = p / hw, rem = p % hw;
-    const int r = (int)(rem / q.w), s = (int)(rem % q.w);
-    const int xr = r + kh - q.halo, xc = s + kw - q.halo;
-    go = b * q.gs0 + r * q.gs1 + s * q.gs2;
-    if (xr >= 0 && xr < q.hx && xc >= 0 && xc < q.wx) xo = b * q.xs0 + xr * q.xs1 + xc * q.xs2;
-  }
-  x_off[threadIdx.x] = xo;
-  g_off[threadIdx.x] = go;
-}
-
-// bf16: block = (channel tile, column tile) x tap x split; TK output
-// columns, TK / 16 accumulator fragments per warp.
-template <int TK>
-__global__ void __launch_bounds__(B_THREADS)
-wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                  float* __restrict__ ws, Geo q) {
-  // [pixel][channel] and [pixel][column]; each row padded by 16 bytes, so
-  // the one-element stores of a channel-planar input conflict 4-way, not
-  // 32-way, and every WMMA fragment stays 32-byte aligned
-  constexpr int NFRAG = TK / 16, GLD = TK + 8;
-  __shared__ __align__(128) bf16 xs[BP * B_XLD];
-  __shared__ __align__(128) bf16 gsm[BP * GLD];
-  __shared__ long long x_off[BP], g_off[BP];
-  const int warp = threadIdx.x / 32;
-  const int c0 = (blockIdx.x / q.tiles_k) * TC, k0 = (blockIdx.x % q.tiles_k) * TK;
-  const int tap = blockIdx.y, kh = tap / q.ks, kw = tap % q.ks;
-  const long long total = (long long)q.n * q.h * q.w;
-  const long long p_begin = (long long)blockIdx.z * q.per_split;
-  const long long p_end = p_begin + q.per_split < total ? p_begin + q.per_split : total;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NFRAG];
+// Stage P pixels of one image row (columns col0 +
+// p, element offset row_off + col * ps) x W channels from c0 (stride cs);
+// zeros where the row, column or channel lies outside the tensor. Pixel-
+// major (!PL): into rows of LD floats a pixel. Channel-planar (PL, ps ==
+// 1): into rows of PP floats a channel, each run of 4 pixels by one 16-byte
+// copy, two of 8 bytes or four of 4, as `copy` says.
+template <bool PL, int P, int W, int LD>
+__device__ __forceinline__ void stage(const float* __restrict__ src, long long row_off,
+                                           bool row_ok, int col0, int cols, long long ps,
+                                           long long cs, int c0, int cn, int copy,
+                                           float* dst) {
+  static_assert(W % 4 == 0 && P % 4 == 0, "whole runs of 4");
+  const int first = threadIdx.x, stride = THREADS;
+  if constexpr (PL) {
+    constexpr int Q = P / 4;  // runs of 4 pixels a channel row
+    // a row whose runs start 16-byte aligned moves in 16-byte copies (the
+    // even rows of the reflect-padded x of width W + 2)
+    if (copy == PLANAR2 && cs % 4 == 0 && (row_off + col0) % 4 == 0 &&
+        (reinterpret_cast<uintptr_t>(src) & 15) == 0)
+      copy = PLANAR4;
+    for (int i = first; i < W * Q; i += stride) {
+      const int c = i / Q, p = (i % Q) * 4, col = col0 + p;
+      const bool ok = row_ok && c0 + c < cn;
+      const float* s = src + row_off + (c0 + c) * cs;
+      float* d = dst + c * PP + p;
+      if (copy == PLANAR4) {
+        const int nv = ok ? max(0, min(4, cols - col)) : 0;
+        cp_async16(d, nv > 0 ? s + col : src, 4 * nv);
+      } else if (copy == PLANAR2) {
 #pragma unroll
-  for (int j = 0; j < NFRAG; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  for (long long p0 = p_begin; p0 < p_end; p0 += BP) {
-    __syncthreads();
-    pixel_offsets<BP>(q, p0, p_end, kh, kw, x_off, g_off);
-    __syncthreads();
-    stage<bf16, BP, TC, B_THREADS>(x, x_off, q.xs3, c0, q.ci, xs, B_XLD);
-    stage<bf16, BP, TK, B_THREADS>(g, g_off, q.gs3, k0, q.co, gsm, GLD);
-    __syncthreads();
+        for (int u = 0; u < 4; u += 2) {
+          const int nv = ok ? max(0, min(2, cols - col - u)) : 0;
+          cp_async8(d + u, nv > 0 ? s + col + u : src, 4 * nv);
+        }
+      } else {
 #pragma unroll
-    for (int kk = 0; kk < BP / 16; ++kk) {
-      // A = xs^T: element (channel m, pixel k) at xs[k*B_XLD + m]
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, xs + kk * 16 * B_XLD + warp * 16, B_XLD);
-#pragma unroll
-      for (int j = 0; j < NFRAG; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-        wmma::load_matrix_sync(bm, gsm + kk * 16 * GLD + j * 16, GLD);
-        wmma::mma_sync(acc[j], a, bm, acc[j]);
+        for (int u = 0; u < 4; ++u) {
+          const bool in = ok && col + u >= 0 && col + u < cols;
+          cp_async4(d + u, in ? s + col + u : src, in ? 4 : 0);
+        }
       }
     }
+  } else if (copy == VEC16) {  // cs == 1, cn % 4 == 0, 16-byte aligned pixels
+    constexpr int Q = W / 4;
+    for (int i = first; i < P * Q; i += stride) {
+      const int p = i / Q, c = (i % Q) * 4, col = col0 + p;
+      const bool ok = row_ok && col >= 0 && col < cols && c0 + c < cn;
+      cp_async16(dst + p * LD + c, ok ? src + row_off + col * ps + c0 + c : src, ok ? 16 : 0);
+    }
+  } else {  // a warp: 8 neighbouring pixels x 4 channels, conflict-free in shared memory
+    constexpr int PG = (P + 7) / 8;
+    for (int i = first; i < PG * 8 * W; i += stride) {
+      const int lane = i % 32, grp = i / 32;
+      const int p = (grp % PG) * 8 + lane % 8, c = (grp / PG) * 4 + lane / 8;
+      if (p >= P) continue;
+      const int col = col0 + p;
+      const bool ok = row_ok && col >= 0 && col < cols && c0 + c < cn;
+      cp_async4(dst + p * LD + c, ok ? src + row_off + col * ps + (c0 + c) * cs : src,
+                ok ? 4 : 0);
+    }
   }
-
-  const int taps = q.ks * q.ks;
-  float* slab = ws + (((size_t)blockIdx.z * taps + tap) * q.ci_pad + c0 + warp * 16) * q.co_pad + k0;
-#pragma unroll
-  for (int j = 0; j < NFRAG; ++j)
-    wmma::store_matrix_sync(slab + j * 16, acc[j], q.co_pad, wmma::mem_row_major);
 }
 
-// f32: 256 threads; thread (tc, tk) = (tid / 16, tid % 16) owns channels
-// c0 + 4tc .. +3 and columns k0 + RK*tk .. +RK-1, f32 FMA.
-template <int RK>
-__global__ void __launch_bounds__(F_THREADS)
+__device__ __forceinline__ void unpack4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+// Block (blockIdx.x = (channel tile * tiles_k + column tile) * NT + d,
+// split blockIdx.y) sums pixel tiles [split * per, min((split + 1) * per,
+// tiles)) of taps (d, 0..NT-1) into slab `split` of ws (splits, NT*NT, Ci,
+// ld). Tile t is image t / per_img, row (t % per_img) / tiles_w, columns
+// 64 * (t % tiles_w) ... XPL / GPL: x / g staged channel-planar.
+template <int NT, int RK, bool XPL, bool GPL>
+__global__ void __launch_bounds__(THREADS, 1)
 wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
                  float* __restrict__ ws, Geo q) {
-  constexpr int TK = 16 * RK, GLD = TK + 4;
-  __shared__ __align__(16) float xs[FP * F_XLD];
-  __shared__ __align__(16) float gsm[FP * GLD];
-  __shared__ long long x_off[FP], g_off[FP];
-  const int tc = threadIdx.x / 16, tk = threadIdx.x % 16;
-  const int c0 = (blockIdx.x / q.tiles_k) * TC, k0 = (blockIdx.x % q.tiles_k) * TK;
-  const int tap = blockIdx.y, kh = tap / q.ks, kw = tap % q.ks;
-  const long long total = (long long)q.n * q.h * q.w;
-  const long long p_begin = (long long)blockIdx.z * q.per_split;
-  const long long p_end = p_begin + q.per_split < total ? p_begin + q.per_split : total;
+  using T = Tile<NT, RK, XPL, GPL>;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, tc = tid / TKG, tk = tid % TKG;
+  const int d = blockIdx.x % NT, kind = blockIdx.x / NT;
+  const int k0 = (kind % q.tiles_k) * T::BK, c0 = (kind / q.tiles_k) * BC;
+  const int split = blockIdx.y, t_begin = split * q.per;
+  const int count = min(q.per, q.tiles - t_begin);
 
-  float acc[4][RK];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < RK; ++j) acc[i][j] = 0.0f;
+  // where tile t's x window and g row start
+  struct Src {
+    long long x_off, g_off;
+    int s0;
+    bool x_ok;
+  };
+  auto src_of = [&](int t) {
+    const int b = t / q.per_img, rem = t - b * q.per_img;
+    const int r = rem / q.tiles_w, xr = r + d - q.halo;
+    return Src{b * q.xs0 + xr * q.xs1, b * q.gs0 + r * q.gs1, (rem % q.tiles_w) * TW,
+               xr >= 0 && xr < q.hx};
+  };
+  auto load = [&](int t, float* st) {
+    const Src u = src_of(t);
+    stage<XPL, XPL ? T::X_POS : T::WC4, BC, T::XP>(x, u.x_off, u.x_ok, u.s0 - q.halo, q.wx, q.xs2,
+                                                   q.xs3, c0, q.ci, q.x_copy, st);
+    stage<GPL, TW, T::BK, T::GP>(g, u.g_off, true, u.s0, q.w, q.gs2, q.gs3, k0, q.co, q.g_copy,
+                                 st + T::X_ELEMS);
+  };
 
-  for (long long p0 = p_begin; p0 < p_end; p0 += FP) {
-    __syncthreads();
-    pixel_offsets<FP>(q, p0, p_end, kh, kw, x_off, g_off);
-    __syncthreads();
-    stage<float, FP, TC, F_THREADS>(x, x_off, q.xs3, c0, q.ci, xs, F_XLD);
-    stage<float, FP, TK, F_THREADS>(g, g_off, q.gs3, k0, q.co, gsm, GLD);
-    __syncthreads();
-#pragma unroll 4
-    for (int p = 0; p < FP; ++p) {
-      const float4 a = *reinterpret_cast<const float4*>(xs + p * F_XLD + tc * 4);
-      float b[RK];
-      if constexpr (RK == 4) {
-        const float4 bv = *reinterpret_cast<const float4*>(gsm + p * GLD + tk * 4);
-        b[0] = bv.x; b[1] = bv.y; b[2] = bv.z; b[3] = bv.w;
+  float acc[NT][RC][RK];
+#pragma unroll
+  for (int e = 0; e < NT; ++e)
+#pragma unroll
+    for (int i = 0; i < RC; ++i)
+#pragma unroll
+      for (int k = 0; k < RK; ++k) acc[e][i][k] = 0.0f;
+
+  // group i carries tile i of the split (empty past its end)
+  if (count > 0) load(t_begin, smem);
+  cp_async_commit();
+  if (count > 1) load(t_begin + 1, smem + T::STAGE);
+  cp_async_commit();
+
+  // a thread's columns: channel-planar g, tk + 16 k (conflict-free reads of
+  // 4 pixels of one column); else runs of 4 at tk * 4 (+ 64 for RK = 8), or tk
+  auto col_of = [&](int k) {
+    return GPL || RK == 1 ? tk + TKG * k : (k / 4) * TKG * 4 + tk * 4 + k % 4;
+  };
+
+#pragma unroll 1
+  for (int it = 0; it < count; ++it) {
+    cp_async_wait<1>();  // tile `it` has landed
+    __syncthreads();     // ... for every thread; stage (it+2)%3 is free
+    if (it + 2 < count) load(t_begin + it + 2, smem + ((it + 2) % STAGES) * T::STAGE);
+    cp_async_commit();
+    const float* xs = smem + (it % STAGES) * T::STAGE;
+    const float* gs = xs + T::X_ELEMS;
+
+    // the 4 window pixels j..j+3 of my channels
+    auto load_x4 = [&](int j, float(&o)[RC][GROUP]) {
+      if constexpr (XPL) {
+#pragma unroll
+        for (int i = 0; i < RC; ++i) unpack4(xs + (tc * RC + i) * PP + j, o[i]);
       } else {
-        b[0] = gsm[p * GLD + tk];
+#pragma unroll
+        for (int t = 0; t < GROUP; ++t)
+#pragma unroll
+          for (int i4 = 0; i4 < RC / 4; ++i4) {
+            float v[4];
+            unpack4(xs + (j + t) * T::XP + tc * RC + i4 * 4, v);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) o[i4 * 4 + u][t] = v[u];
+          }
       }
-      const float av[4] = {a.x, a.y, a.z, a.w};
+    };
+    // K5 carries window pixels j..j+3 from the step before, so each is read
+    // from shared memory once
+    float xa[RC][GROUP];
+    if constexpr (NT > 1) load_x4(0, xa);
+
+#pragma unroll 4
+    for (int step = 0; step < STEPS; ++step) {
+      const int j = step * GROUP;
+      // x at window pixels j..j+3 (xa) and j+4..j+7 (xb) of my channels; g
+      // at pixels j..j+3 of my columns
+      float xb[RC][GROUP];
+      if constexpr (NT > 1)
+        load_x4(j + GROUP, xb);
+      else
+        load_x4(j, xa);
+      float gv[GROUP][RK];
+      if constexpr (GPL) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int k = 0; k < RK; ++k) {
+          float v[4];
+          unpack4(gs + col_of(k) * PP + j, v);
 #pragma unroll
-        for (int j = 0; j < RK; ++j) acc[i][j] = fmaf(av[i], b[j], acc[i][j]);
+          for (int t = 0; t < GROUP; ++t) gv[t][k] = v[t];
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < GROUP; ++t) {
+          if constexpr (RK == 1) {
+            gv[t][0] = gs[(j + t) * T::GP + tk];
+          } else {
+#pragma unroll
+            for (int k4 = 0; k4 < RK / 4; ++k4)
+              unpack4(gs + (j + t) * T::GP + col_of(4 * k4), gv[t] + 4 * k4);
+          }
+        }
+      }
+      // tap e pairs window pixel j + t + e with g pixel j + t
+#pragma unroll
+      for (int t = 0; t < GROUP; ++t)
+#pragma unroll
+        for (int e = 0; e < NT; ++e)
+#pragma unroll
+          for (int i = 0; i < RC; ++i) {
+            const float xe = t + e < GROUP ? xa[i][t + e] : xb[i][t + e - GROUP];
+#pragma unroll
+            for (int k = 0; k < RK; ++k) acc[e][i][k] = fmaf(xe, gv[t][k], acc[e][i][k]);
+          }
+      if constexpr (NT > 1) {
+#pragma unroll
+        for (int i = 0; i < RC; ++i)
+#pragma unroll
+          for (int u = 0; u < GROUP; ++u) xa[i][u] = xb[i][u];
+      }
     }
   }
+  cp_async_wait<0>();
 
-  const int taps = q.ks * q.ks;
-  float* slab = ws + (((size_t)blockIdx.z * taps + tap) * q.ci_pad + c0 + tc * 4) * q.co_pad +
-                k0 + tk * RK;
+  // the sums to this split's slab, rows of pitch ld (Co rounded up to 4): a
+  // run of 4 columns lies in the row whenever its first does
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int e = 0; e < NT; ++e) {
+    float* slab = ws + ((size_t)split * NT * NT + d * NT + e) * q.ci * q.ld;
 #pragma unroll
-    for (int j = 0; j < RK; ++j) slab[(size_t)i * q.co_pad + j] = acc[i][j];
-}
-
-// Second pass: dW[tap, ci, co] (f32, dense) = sum of the slabs, in split order.
-__global__ void wgrad_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw,
-                                    int splits, int taps, int ci, int co, int ci_pad,
-                                    int co_pad) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)taps * ci * co) return;
-  const int k = idx % co;
-  const int c = (idx / co) % ci;
-  const int tap = idx / ((size_t)co * ci);
-  float s = 0.0f;
-  for (int sp = 0; sp < splits; ++sp)
-    s += ws[(((size_t)sp * taps + tap) * ci_pad + c) * co_pad + k];
-  dw[idx] = s;
-}
-
-// Output-column tile of a variant: 16 for narrow outputs, else 128 (bf16)
-// or 64 (f32).
-int tile_k(int is_f32, int co) { return co <= 16 ? 16 : (is_f32 ? 64 : 128); }
-
-int launch(const void* x, const void* g, void* ws, void* dw, const Geo& q, int splits,
-           int is_f32, cudaStream_t st) {
-  const int taps = q.ks * q.ks;
-  dim3 grid((q.ci_pad / TC) * q.tiles_k, taps, splits);
-  if (is_f32) {
-    const float* xf = static_cast<const float*>(x);
-    const float* gf = static_cast<const float*>(g);
-    if (tile_k(1, q.co) == 16)
-      wgrad_f32_kernel<1><<<grid, F_THREADS, 0, st>>>(xf, gf, static_cast<float*>(ws), q);
-    else
-      wgrad_f32_kernel<4><<<grid, F_THREADS, 0, st>>>(xf, gf, static_cast<float*>(ws), q);
-  } else {
-    const bf16* xb = static_cast<const bf16*>(x);
-    const bf16* gb = static_cast<const bf16*>(g);
-    if (tile_k(0, q.co) == 16)
-      wgrad_bf16_kernel<16><<<grid, B_THREADS, 0, st>>>(xb, gb, static_cast<float*>(ws), q);
-    else
-      wgrad_bf16_kernel<128><<<grid, B_THREADS, 0, st>>>(xb, gb, static_cast<float*>(ws), q);
+    for (int i = 0; i < RC; ++i) {
+      const int ch = c0 + tc * RC + i;
+      if (ch >= q.ci) continue;
+      float* row = slab + (size_t)ch * q.ld + k0;
+      if constexpr (GPL || RK == 1) {
+#pragma unroll
+        for (int k = 0; k < RK; ++k)
+          if (k0 + col_of(k) < q.co) row[col_of(k)] = acc[e][i][k];
+      } else {
+#pragma unroll
+        for (int k4 = 0; k4 < RK / 4; ++k4)
+          if (k0 + col_of(4 * k4) < q.co)
+            *reinterpret_cast<float4*>(row + col_of(4 * k4)) =
+                make_float4(acc[e][i][4 * k4], acc[e][i][4 * k4 + 1], acc[e][i][4 * k4 + 2],
+                            acc[e][i][4 * k4 + 3]);
+      }
+    }
   }
-  cudaError_t err = cudaGetLastError();
+}
+
+// Second pass: dW (taps, Ci, Co) dense = the slabs' sum over rows of pitch
+// ld, in split order, one value a thread.
+__global__ void wgrad_sum_kernel(const float* __restrict__ ws, float* __restrict__ dw,
+                                 int splits, int co, int ld, size_t total) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const size_t at = i / co * ld + i % co, slab = total / co * ld;
+  float s = ws[at];
+#pragma unroll 8
+  for (int sp = 1; sp < splits; ++sp) s += ws[(size_t)sp * slab + at];
+  dw[i] = s;
+}
+
+bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// How to stage an operand with `c` channels, element strides s0..s3 and
+// `shift` = how far its tiles' first column lies from a multiple of 64.
+int copy_of(const void* p, int c, long long s0, long long s1, long long s2, long long s3,
+            int shift) {
+  if (s2 == 1 && c > 1) {  // pixels of a row contiguous: channel-planar
+    for (int v = 4; v > 1; v /= 2)
+      if (s0 % v == 0 && s1 % v == 0 && s3 % v == 0 && shift % v == 0 && aligned(p, 4 * v))
+        return v == 4 ? PLANAR4 : PLANAR2;
+    return PLANAR1;
+  }
+  const bool vec = s3 == 1 && c % 4 == 0 && s0 % 4 == 0 && s1 % 4 == 0 && s2 % 4 == 0 &&
+                   aligned(p, 16);
+  return vec ? VEC16 : ELEM;
+}
+
+template <int NT, int RK, bool XPL, bool GPL>
+int launch(const float* x, const float* g, float* ws, Geo q, int splits, cudaStream_t st) {
+  using T = Tile<NT, RK, XPL, GPL>;
+  cudaError_t err = cudaFuncSetAttribute(wgrad_f32_kernel<NT, RK, XPL, GPL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)T::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)taps * q.ci * q.co;
-  const int threads = 256;
-  wgrad_reduce_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<float*>(dw), splits, taps, q.ci, q.co,
-      q.ci_pad, q.co_pad);
+  q.tiles_k = (q.co + T::BK - 1) / T::BK;
+  dim3 grid(((q.ci + BC - 1) / BC) * q.tiles_k * NT, splits);
+  wgrad_f32_kernel<NT, RK, XPL, GPL><<<grid, THREADS, T::SMEM, st>>>(x, g, ws, q);
   return (int)cudaGetLastError();
+}
+
+template <int NT, int RK>
+int launch_layouts(const float* x, const float* g, float* ws, const Geo& q, int splits,
+                   cudaStream_t st) {
+  const bool xpl = q.x_copy >= PLANAR4, gpl = q.g_copy >= PLANAR4;
+  if (xpl)
+    return gpl ? launch<NT, RK, true, true>(x, g, ws, q, splits, st)
+               : launch<NT, RK, true, false>(x, g, ws, q, splits, st);
+  return gpl ? launch<NT, RK, false, true>(x, g, ws, q, splits, st)
+             : launch<NT, RK, false, false>(x, g, ws, q, splits, st);
 }
 
 }  // namespace
 
 // -- C interface ---------------------------------------------------------------
 // Launches on `stream`, does not synchronise, allocates nothing, returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a bf16
-// 3x3 gradient (dip_wgrad3x3_mma's). x and g are float (is_f32) or bf16; dw
-// is (ks, ks, ci, co) float, dense; ws holds splits * ks*ks * ci_pad *
-// co_pad floats (dip_wgrad_tiles gives the padding); each split covers
-// per_split consecutive pixels of the N*h*w reduction.
-extern "C" int dip_wgrad(const void* x, const void* g, void* ws, void* dw, int n, int h, int w,
-                         int hx, int wx, int ci, int co, long long xs0, long long xs1,
-                         long long xs2, long long xs3, long long gs0, long long gs1,
-                         long long gs2, long long gs3, int ks, int halo, int splits,
-                         long long per_split, int is_f32, void* stream) {
-  if (ks == 3 && !is_f32) return (int)cudaErrorInvalidValue;
-  const int tk = tile_k(is_f32, co);
-  Geo q{n, h, w, hx, wx, ci, co, xs0, xs1, xs2, xs3, gs0, gs1, gs2, gs3, ks, halo,
-        (co + tk - 1) / tk, (ci + TC - 1) / TC * TC, (co + tk - 1) / tk * tk, per_split};
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes the
+// kernel does not take or splits that do not cover the N*H*ceil(W/64) pixel
+// tiles. x and g are f32 with any element strides; dw is (ks, ks, ci, co)
+// f32, dense; ws holds splits * ks*ks * ci * ld floats, ld = co rounded up
+// to 4; split s sums tiles [s * per, (s + 1) * per). The plan is
+// hopper_wgrad.f32_plan.
+extern "C" int dip_wgrad_f32(const void* x, const void* g, void* ws, void* dw, int n, int h,
+                             int w, int hx, int wx, int ci, int co, long long xs0, long long xs1,
+                             long long xs2, long long xs3, long long gs0, long long gs1,
+                             long long gs2, long long gs3, int ks, int halo, int splits, int per,
+                             int ld, void* stream) {
+  const long long tiles = (long long)n * h * ((w + TW - 1) / TW);
+  const bool shape_ok = ks == 3 ? (halo == 0 || halo == 1) && hx == h + 2 - 2 * halo &&
+                                      wx == w + 2 - 2 * halo
+                                : ks == 1 && halo == 0 && hx == h && wx == w;
+  if (!shape_ok || n < 1 || h < 1 || w < 1 || ci < 1 || co < 1 || splits < 1 || per < 1 ||
+      ld < co || ld % 4 || tiles > INT32_MAX || (long long)splits * per < tiles ||
+      !aligned(ws, 16) || !aligned(dw, 16))
+    return (int)cudaErrorInvalidValue;
+  Geo q{h, w, hx, wx, ci, co, halo, ld, xs0, xs1, xs2, xs3, gs0, gs1, gs2, gs3,
+        (w + TW - 1) / TW, h * ((w + TW - 1) / TW), (int)tiles, per, 0,
+        copy_of(x, ci, xs0, xs1, xs2, xs3, halo), copy_of(g, co, gs0, gs1, gs2, gs3, 0)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch(x, g, ws, dw, q, splits, is_f32, st);
-}
-
-// The tiles of the variant for (is_f32, co): channels per block, columns
-// per block, pixels per stage.
-extern "C" int dip_wgrad_tiles(int is_f32, int co, int* tc, int* tk, int* tp) {
-  *tc = TC;
-  *tk = tile_k(is_f32, co);
-  *tp = is_f32 ? FP : BP;
-  return 0;
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+  float* wsf = static_cast<float*>(ws);
+  const bool narrow = co <= 16;
+  const int rc = ks == 3 ? (narrow ? launch_layouts<3, 1>(xf, gf, wsf, q, splits, st)
+                                   : launch_layouts<3, 4>(xf, gf, wsf, q, splits, st))
+                         : (narrow ? launch_layouts<1, 1>(xf, gf, wsf, q, splits, st)
+                                   : launch_layouts<1, 8>(xf, gf, wsf, q, splits, st));
+  if (rc != 0) return rc;
+  const size_t total = (size_t)ks * ks * ci * co;
+  const int threads = 256;
+  wgrad_sum_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
+      wsf, static_cast<float*>(dw), splits, co, ld, total);
+  return (int)cudaGetLastError();
 }

@@ -111,17 +111,16 @@ def load() -> ctypes.CDLL:
     lib.dip_up_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
     # x, g, workspace, dW, n, h, w, ci, co, splits, tiles a split, f32, stream
     lib.dip_wgrad3x3_mma.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
+    lib.dip_wgrad1x1_mma.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
     lib.dip_downsample.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [ptr]
     # x, out, n, h/2, w/2, c, x's 4 strides, in f32, out f32, stream
     lib.dip_s2d_pack.argtypes = [ptr, ptr] + [i32] * 4 + [i64] * 4 + [i32] * 2 + [ptr]
     # x, g, workspace, dW, n, h, w, hx, wx, ci, co, x's and g's 4 strides,
-    # ks, halo, splits, pixels per split, f32, stream
-    lib.dip_wgrad.argtypes = ([ptr] * 4 + [i32] * 7 + [i64] * 8 + [i32] * 3 + [i64, i32]
-                              + [ptr])
-    lib.dip_wgrad_tiles.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    # ks, halo, splits, tiles a split, slab row pitch, stream
+    lib.dip_wgrad_f32.argtypes = [ptr] * 4 + [i32] * 7 + [i64] * 8 + [i32] * 5 + [ptr]
     for fn in (lib.dip_up_conv_fwd, lib.dip_up_conv_dgrad, lib.dip_up_conv_wgrad,
-               lib.dip_wgrad3x3_mma, lib.dip_downsample, lib.dip_s2d_pack,
-               lib.dip_wgrad, lib.dip_wgrad_tiles):
+               lib.dip_wgrad3x3_mma, lib.dip_wgrad1x1_mma, lib.dip_downsample,
+               lib.dip_s2d_pack, lib.dip_wgrad_f32):
         fn.restype = i32
     _lib = lib
     return lib

@@ -6,9 +6,9 @@ Counterpart of dip_tpu/ops/pallas_up_conv.py. The kernels live in
 pipeline), `csrc/up_conv_dgrad.cu` (dgrad, the same machinery over the
 phase-major dz, its reduction split as `dgrad_plan` says) and
 `csrc/up_conv_wgrad.cu` (wgrad, mma.sync GEMMs over pixel tiles split as
-`wgrad_plan` says; the same kernel runs K5 in bf16 for ops/hopper_wgrad.py,
-split as `wgrad3x3_plan` says); a split reduction ends in a deterministic
-second pass.
+`wgrad_plan` says; the same kernel runs K5 and K6 in bf16 for
+ops/hopper_wgrad.py, split as `wgrad3x3_plan` and `wgrad_mma_plan` say); a
+split reduction ends in a deterministic second pass.
 They are built at first use by ops/_build.py:
 
   fwd    xp (N,h+2,w+2,C), e (3,3,C,4F)  -> z (N,2h,2w,F), phase -> HR
@@ -229,22 +229,25 @@ def dgrad(dzq: torch.Tensor, e: torch.Tensor,
     return dxp
 
 
-# wgrad's tiles (csrc/up_conv_wgrad.cu, which also runs K5 in bf16): pixel
-# tiles of TH x TW, and a block's output tile of one kernel row's three taps
-# x BC channels x BK columns
+# wgrad's tiles (csrc/up_conv_wgrad.cu, which also runs K5 and K6 in bf16):
+# pixel tiles of TH x TW, and a block's output tile of one kernel row's
+# taps (three, or one for K6) x BC channels x BK columns
 _WG_TH, _WG_TW, _WG_BC, _WG_BK = 8, 16, 64, 128
 # at most one split for every six pixel tiles: a split costs one f32
-# (9, C, cols) slab each way through device memory, which outweighs the
+# (taps, C, cols) slab each way through device memory, which outweighs the
 # parallelism it adds below about six tiles (measured on an H100: PERF.md §6)
 _WG_TILES_A_SPLIT = 6
+# waves of blocks the splits aim at, by taps: two for the 3x3, one for the
+# 1x1 (measured on an H100 with `seam_times.py --waves`: PERF.md §6)
+_WG_WAVES = {9: 2, 1: 1}
 
 
 class WgradPlan(NamedTuple):
     """How the weight-gradient kernel cuts the N*h*w reduction: `splits`
     slices of `tiles_per_split` consecutive pixel tiles each (the last takes
     the rest), summing `pixels[s]` pixels into slab s of an f32 workspace of
-    shape `workspace` (splits, 9, C, cols rounded up to 4), on a grid of
-    `grid` blocks (C tiles x column tiles x 3 kernel rows, splits)."""
+    shape `workspace` (splits, taps, C, cols rounded up to 4), on a grid of
+    `grid` blocks (C tiles x column tiles x kernel rows, splits)."""
     tiles: int
     splits: int
     tiles_per_split: int
@@ -254,15 +257,18 @@ class WgradPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
-def wgrad3x3_plan(n: int, h: int, w: int, c: int, cols: int) -> WgradPlan:
-    """The split plan of a VALID 3x3 weight gradient over x (N, h+2, w+2, C)
-    and dz (N, h, w, cols), from the shape alone: enough splits for two
-    waves of blocks on the card's SMs (one block an SM), but no more than
-    one for every _WG_TILES_A_SPLIT pixel tiles."""
+def wgrad_mma_plan(n: int, h: int, w: int, c: int, cols: int, taps: int) -> WgradPlan:
+    """The split plan of a VALID k x k weight gradient (taps = k*k, k = 3 or
+    1) over x (N, h+k-1, w+k-1, C) and dz (N, h, w, cols), from the shape
+    alone: enough splits for _WG_WAVES[taps] waves of blocks on the card's
+    SMs (one block an SM), but no more than one split for every
+    _WG_TILES_A_SPLIT pixel tiles."""
+    if taps not in (9, 1):
+        raise ValueError(f"taps must be 9 or 1, got {taps}")
     rows, tcols = -(-h // _WG_TH), -(-w // _WG_TW)
     tiles = n * rows * tcols
-    blocks = -(-c // _WG_BC) * -(-cols // _WG_BK) * 3
-    splits = min(-(-2 * _SMS // blocks), -(-tiles // _WG_TILES_A_SPLIT))
+    blocks = -(-c // _WG_BC) * -(-cols // _WG_BK) * (3 if taps == 9 else 1)
+    splits = min(-(-_WG_WAVES[taps] * _SMS // blocks), -(-tiles // _WG_TILES_A_SPLIT))
     per = -(-tiles // splits)
     splits = -(-tiles // per)
     # pixels of tile t: its valid rows times its valid columns
@@ -270,7 +276,12 @@ def wgrad3x3_plan(n: int, h: int, w: int, c: int, cols: int) -> WgradPlan:
                for r in range(rows) for s in range(tcols)] * n
     pixels = tuple(sum(tile_px[i * per:(i + 1) * per]) for i in range(splits))
     return WgradPlan(tiles, splits, per, pixels, (blocks, splits),
-                     (splits, 9, c, -(-cols // 4) * 4))
+                     (splits, taps, c, -(-cols // 4) * 4))
+
+
+def wgrad3x3_plan(n: int, h: int, w: int, c: int, cols: int) -> WgradPlan:
+    """wgrad_mma_plan of the 3x3 weight gradient (K3, and K5 in bf16)."""
+    return wgrad_mma_plan(n, h, w, c, cols, 9)
 
 
 @functools.lru_cache(maxsize=64)

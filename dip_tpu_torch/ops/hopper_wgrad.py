@@ -13,13 +13,19 @@ inputs run bf16 tensor-core products with f32 sums, f32 inputs true f32
 (no TF32). The plain versions compute in f32 from the same inputs, so
 kernel and plain version differ only in the order of the f32 sums.
 
-In bf16, wgrad3x3_s1 runs the seam weight gradient's mma.sync kernel
-(`csrc/up_conv_wgrad.cu`, split as hopper_up_conv.wgrad3x3_plan says),
-which computes the same function on a padded x with Co columns. It takes
-NHWC-dense operands, so `_k5_operands` copies a channel-planar or
-otherwise strided x or g once, and pads x by one zero pixel for halo=1.
-In f32, and wgrad1x1 in both dtypes, run `csrc/wgrad.cu`, whose kernels
-take the inputs' strides, so neither input is copied first.
+Routing on CUDA tensors:
+  bf16  both run the seam weight gradient's mma.sync kernel
+        (`csrc/up_conv_wgrad.cu`), which computes the same function on
+        NHWC-dense operands: the 3x3 through `dip_wgrad3x3_mma` (split as
+        hopper_up_conv.wgrad3x3_plan says), the 1x1 through its one-tap form
+        `dip_wgrad1x1_mma` (hopper_up_conv.wgrad_mma_plan, taps 1). A
+        channel-planar or otherwise strided x or g is copied once (`_dense`);
+        the 3x3's x is padded by one zero pixel for halo=1 (`_k5_operands`),
+        the 1x1's channels to a multiple of 8 (`_pad8`: the 3-channel head's
+        g would otherwise take the kernel's slow masked staging).
+  f32   both run `csrc/wgrad.cu` (`dip_wgrad_f32`, split as `f32_plan`
+        says): register-tiled SIMT FMA over staged windows, which takes the
+        inputs' element strides, so nothing is copied first.
 
 `Conv3x3S1` and `Conv1x1` are the counterparts of `_conv3x3_s1p1` and
 `_conv1x1`: forward F.conv2d (cuDNN), data gradient cuDNN's
@@ -31,7 +37,8 @@ it launches the kernel or raises. Each launch adds one to `LAUNCHES`.
 
 from __future__ import annotations
 
-import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -40,8 +47,13 @@ from dip_tpu_torch.ops import _build, hopper_up_conv
 
 LAUNCHES = {"wgrad3x3_s1": 0, "wgrad1x1": 0}
 _FLOATS = (torch.float32, torch.bfloat16)
-TARGET_BLOCKS = 512   # about four blocks per SM of an H100 across the splits
-MIN_SPLIT_PIXELS = 1024
+# the f32 kernel's tiles (csrc/wgrad.cu): pixel tiles of 64 pixels of one
+# image row; a block's output tile of 128 channels x BK columns for each tap
+# of one kernel row; one block an SM
+_F32_TW, _F32_BC = 64, 128
+# waves of blocks its splits aim at (measured on an H100 with
+# `seam_times.py --waves`: PERF.md §6)
+_F32_WAVES = 1
 
 
 def reset_launches() -> None:
@@ -89,34 +101,52 @@ def _check(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int) -> tuple[int, i
     return h, w
 
 
-def _splits(pixels: int, blocks_per_split: int, stage: int) -> tuple[int, int]:
-    """(splits, pixels per split) of the N*H*W reduction: enough blocks to
-    fill the card, each split at least MIN_SPLIT_PIXELS long (or one
-    split), a whole number of stages."""
-    splits = max(1, min(-(-TARGET_BLOCKS // blocks_per_split), pixels // MIN_SPLIT_PIXELS,
-                        65535))
-    per = -(-pixels // splits)
-    per = -(-per // stage) * stage
-    return -(-pixels // per), per
+class F32Plan(NamedTuple):
+    """How the f32 kernel cuts the N*H*W reduction: `splits` slices of
+    `tiles_per_split` consecutive 64-pixel row tiles each (the last takes
+    the rest), each summed into one slab of an f32 workspace of shape
+    `workspace` (splits, ks*ks, Ci, Co rounded up to 4), on a grid of `grid`
+    blocks (Ci tiles x column tiles x kernel rows, splits); `block_cols` is
+    the column tile (16 for Co <= 16)."""
+    tiles: int
+    splits: int
+    tiles_per_split: int
+    block_cols: int
+    grid: tuple[int, int]
+    workspace: tuple[int, int, int, int]
 
 
-def _launch(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int) -> torch.Tensor:
-    lib = _build.load()
+@functools.lru_cache(maxsize=64)
+def f32_plan(n: int, h: int, w: int, ci: int, co: int, ks: int) -> F32Plan:
+    """The f32 kernel's split plan for g (N, H, W, Co), Ci input channels
+    and a ks x ks kernel (3 or 1), from the shape alone: enough splits for
+    _F32_WAVES waves of blocks on the card's SMs (one block an SM), one
+    tile a split at the least. No floor of tiles a split: the small 'kate'
+    shapes (R = 16-128) have too few tiles to fill a wave as it is."""
+    if ks not in (3, 1):
+        raise ValueError(f"ks must be 3 or 1, got {ks}")
+    bk = 16 if co <= 16 else (64 if ks == 3 else 128)
+    tiles = n * h * -(-w // _F32_TW)
+    blocks = -(-ci // _F32_BC) * -(-co // bk) * (3 if ks == 3 else 1)
+    splits = min(-(-_F32_WAVES * hopper_up_conv._SMS // blocks), tiles)
+    per = -(-tiles // splits)
+    splits = -(-tiles // per)
+    return F32Plan(tiles, splits, per, bk, (blocks, splits),
+                   (splits, ks * ks, ci, -(-co // 4) * 4))
+
+
+def _launch_f32(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int) -> torch.Tensor:
+    """The f32 kernel on x and g as they lie (their strides are passed)."""
     n, h, w, co = g.shape
     ci = x.shape[3]
-    is_f32 = int(x.dtype == torch.float32)
-    tc, tk, tp = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    lib.dip_wgrad_tiles(is_f32, co, ctypes.byref(tc), ctypes.byref(tk), ctypes.byref(tp))
-    ci_pad = -(-ci // tc.value) * tc.value
-    co_pad = -(-co // tk.value) * tk.value
-    splits, per = _splits(n * h * w, (ci_pad // tc.value) * (co_pad // tk.value) * ks * ks,
-                          tp.value)
-    ws = torch.empty((splits, ks * ks, ci_pad, co_pad), dtype=torch.float32, device=x.device)
+    plan = f32_plan(n, h, w, ci, co, ks)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
     dw = torch.empty((ks, ks, ci, co), dtype=torch.float32, device=x.device)
-    rc = lib.dip_wgrad(x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, w,
-                       x.shape[1], x.shape[2], ci, co, *x.stride(), *g.stride(), ks, halo,
-                       splits, per, is_f32, _build.stream())
-    _build.raise_on(rc, f"wgrad {ks}x{ks}")
+    rc = _build.load().dip_wgrad_f32(
+        x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, w, x.shape[1],
+        x.shape[2], ci, co, *x.stride(), *g.stride(), ks, halo, plan.splits,
+        plan.tiles_per_split, plan.workspace[3], _build.stream())
+    _build.raise_on(rc, f"wgrad {ks}x{ks} f32")
     return dw
 
 
@@ -137,18 +167,40 @@ def _k5_operands(x: torch.Tensor, g: torch.Tensor, halo: int) -> tuple[torch.Ten
     return _dense(x), _dense(g)
 
 
-def _launch3x3_bf16(x: torch.Tensor, g: torch.Tensor, halo: int) -> torch.Tensor:
-    xd, gd = _k5_operands(x, g, halo)
-    n, h, w, co = g.shape
-    ci = x.shape[3]
-    plan = hopper_up_conv.wgrad3x3_plan(n, h, w, ci, co)
+def _pad8(t: torch.Tensor) -> torch.Tensor:
+    """The 1x1 kernel's operand: t NHWC-dense and 16-byte aligned, its
+    channels zero-padded to a multiple of 8 where they are not one (so the
+    kernel's 16-byte copies apply), one copy at most."""
+    c = t.shape[3]
+    if c % 8 == 0:
+        return _dense(t)
+    out = t.new_zeros((*t.shape[:3], -(-c // 8) * 8))
+    out[..., :c] = t
+    return out
+
+
+def _launch_mma(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int) -> torch.Tensor:
+    """The bf16 mma.sync kernel (3x3 or its one-tap 1x1 form) on NHWC-dense
+    operands, each copied once at most; the 1x1's zero-padded channels add
+    zero rows and columns to dW, which are cut off."""
+    xd, gd = _k5_operands(x, g, halo) if ks == 3 else (_pad8(x), _pad8(g))
+    n, h, w, co = gd.shape
+    ci = xd.shape[3]
+    plan = hopper_up_conv.wgrad_mma_plan(n, h, w, ci, co, ks * ks)
     ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
-    dw = torch.empty((3, 3, ci, co), dtype=torch.float32, device=x.device)
-    rc = _build.load().dip_wgrad3x3_mma(
-        xd.data_ptr(), gd.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, w, ci, co,
-        plan.splits, plan.tiles_per_split, 1, _build.stream())
-    _build.raise_on(rc, "wgrad 3x3 bf16")
-    return dw
+    dw = torch.empty((ks, ks, ci, co), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    entry = lib.dip_wgrad3x3_mma if ks == 3 else lib.dip_wgrad1x1_mma
+    rc = entry(xd.data_ptr(), gd.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, w, ci, co,
+               plan.splits, plan.tiles_per_split, 1, _build.stream())
+    _build.raise_on(rc, f"wgrad {ks}x{ks} bf16")
+    return dw[..., :x.shape[3], :g.shape[3]]
+
+
+def _launch(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int) -> torch.Tensor:
+    if x.dtype == torch.bfloat16:
+        return _launch_mma(x, g, ks, halo)
+    return _launch_f32(x, g, ks, halo)
 
 
 def wgrad3x3_s1(x: torch.Tensor, g: torch.Tensor, halo: int = 1) -> torch.Tensor:
@@ -156,7 +208,7 @@ def wgrad3x3_s1(x: torch.Tensor, g: torch.Tensor, halo: int = 1) -> torch.Tensor
     _check(x, g, 3, halo)
     if _build.on_cpu(x=x, g=g):
         return wgrad3x3_s1_plain(x, g, halo)
-    dw = _launch3x3_bf16(x, g, halo) if x.dtype == torch.bfloat16 else _launch(x, g, 3, halo)
+    dw = _launch(x, g, 3, halo)
     LAUNCHES["wgrad3x3_s1"] += 1
     return dw
 

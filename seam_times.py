@@ -1,9 +1,9 @@
 """Time the seam's data-gradient (K2) and weight-gradient (K3) kernels on
-one CUDA card at the seams chip_smoke.py holds them to, or the bf16 3x3
-conv weight gradient (K5, `hopper_wgrad.wgrad3x3_s1`) at the calls an
-inpainting 'kate' step makes, beside the one library call that computes
-the same function (cuDNN's transposed conv for K2, its weight gradient for
-K3 and K5) and the bound of each shape.
+one CUDA card at the seams chip_smoke.py holds them to, or the conv weight
+gradients (K5, `hopper_wgrad.wgrad3x3_s1`; K6, `hopper_wgrad.wgrad1x1`) at
+the calls an inpainting 'kate' step makes, beside the one library call that
+computes the same function (cuDNN's transposed conv for K2, its weight
+gradient for K3, K5 and K6) and the bound of each shape.
 
 Two times a call, for the kernel's wrapper and for the library call: `ms`,
 the best of three back-to-back loops timed with CUDA events (what a caller
@@ -11,31 +11,41 @@ waits, launch costs included: at the small seams the host's pace), and
 `device_ms`, the summed device time of the kernels the call launches, from
 torch.profiler (what the card spends).
 
-    python3 seam_times.py [--kernel dgrad|wgrad|wgrad3x3_s1] [--min-steps LIST]
+    python3 seam_times.py [--kernel dgrad|wgrad|wgrad3x3_s1|wgrad1x1]
+                          [--dtype bfloat16|float32] [--min-steps LIST] [--waves LIST]
                           [--seam N,h,w,C,F] [--root DIR] [--label NAME] [--out FILE]
 
 `--kernel` is repeatable; without it K2 and K3 are timed. Each K2 and K3
 row carries a digest of the kernel's output (the inputs come from one
 seeded generator in a fixed order), so two checkouts timed by this script
-show whether a kernel's bits changed. `--kernel wgrad3x3_s1` first runs
-one bf16 step of inpainting 'kate' at 512^2 with conv_wgrad='3x3' and
-records the shape, strides and halo of each K5 call (ten: x (1,R+2,R+2,128)
-and g (1,R,R,128), R from 512 down, NHWC or channel-planar as the step
-hands them over), then times the wrapper on seeded bf16 inputs of the same
-shapes and strides, layout copies included.
+show whether a kernel's bits changed. `--kernel wgrad3x3_s1` and `--kernel
+wgrad1x1` first run one step of inpainting 'kate' at 512^2 with
+conv_wgrad='all' in each `--dtype` (repeatable, default bfloat16) and record
+the shape, strides and halo of each K5 and K6 call (ten K5: x
+(1,R+2,R+2,128) and g (1,R,R,128), R from 512 down; eleven K6: the 1x1
+skip, up and head convs; NHWC or channel-planar as the step hands them
+over), then time the wrapper on seeded inputs of the same shapes, strides
+and dtype, layout copies included, with the sum over the step's calls; each
+row carries a digest of the output too. The first f32 K5 call at g
+(1,512,512,128) also prints the names of the kernels cuDNN runs for it.
 `--min-steps 3,9,18` times K2 once for each split floor of the list (the
 shortest split, in steps, that `hopper_up_conv.dgrad_plan` allows) in
 place of the checkout's own floor; each K2 row names its split count.
+`--waves 1,2` times K5 and K6 once for each wave target of the list (the
+waves of blocks on the card's SMs that the f32 and the mma split plans aim
+at, `hopper_wgrad._F32_WAVES` and `hopper_up_conv._WG_WAVES`) in place of
+the checkout's own.
 `--seam` (repeatable) times the given seams in place of the default ones:
 the five flagship seams, the ragged seam, the seams that cut the tiles
 raggedly and the four 'library' seams (chip_smoke.FLAGSHIP_SEAMS,
 RAGGED_SEAM, FWD_RAGGED, LIBRARY_SEAMS), in bf16 and f32, TF32 off. Each
-kernel is first held to its plain version at chip_smoke.TOL. `--root DIR`
-imports `dip_tpu_torch` from DIR instead of this checkout: a parent commit
-unpacked with `git archive` under build/parent/ is then timed by the same
-script on the same card (run parent, change, change, parent in one call).
-One line a kernel, dtype and shape, then the card line; with `--out` the
-rows also go to FILE as JSON. Without a CUDA device it exits 1.
+kernel is first held to its plain version at chip_smoke.TOL (the weight
+gradients at chip_smoke.WGRAD_TOL). `--root DIR` imports `dip_tpu_torch`
+from DIR instead of this checkout: a parent commit unpacked with `git
+archive` under build/parent/ is then timed by the same script on the same
+card (run parent, change, change, parent in one call). One line a kernel,
+dtype and shape, then the card line; with `--out` the rows also go to FILE
+as JSON. Without a CUDA device it exits 1.
 """
 
 from __future__ import annotations
@@ -104,83 +114,118 @@ def time_seam(S, H, name: str, dtype: torch.dtype, seam: tuple, gen, dev, label:
     return row
 
 
-def kate_k5_calls() -> list[tuple]:
-    """(halo, x shape, x strides, g shape, g strides) of each bf16 K5 call in
-    one step of inpainting 'kate' at 512^2 with conv_wgrad='3x3', read from
-    the fit of whichever checkout is imported."""
+WGRAD_KERNELS = ("wgrad3x3_s1", "wgrad1x1")
+
+
+def kate_wgrad_calls(dtype: torch.dtype) -> dict:
+    """{kernel: [(halo, x shape, x strides, g shape, g strides), ...]} of the
+    K5 and K6 calls in one step of inpainting 'kate' at 512^2 with
+    conv_wgrad='all' in `dtype`, read from the fit of whichever checkout is
+    imported."""
     from dip_tpu_torch.bench import _kate
     from dip_tpu_torch.ops import hopper_wgrad as W
 
-    eng, state, aux = _kate(512, "bfloat16", "cuda")
-    eng.model.conv_wgrad = "3x3"
-    calls, real = [], W.wgrad3x3_s1
+    eng, state, aux = _kate(512, "bfloat16" if dtype == torch.bfloat16 else None, "cuda", "all")
+    calls = {k: [] for k in WGRAD_KERNELS}
+    real3, real1 = W.wgrad3x3_s1, W.wgrad1x1
 
-    def record(x, g, halo=1):
-        calls.append((halo, tuple(x.shape), x.stride(), tuple(g.shape), g.stride()))
-        return real(x, g, halo)
+    def record3(x, g, halo=1):
+        calls["wgrad3x3_s1"].append((halo, tuple(x.shape), x.stride(), tuple(g.shape), g.stride()))
+        return real3(x, g, halo)
 
-    W.wgrad3x3_s1 = record
+    def record1(x, g):
+        calls["wgrad1x1"].append((0, tuple(x.shape), x.stride(), tuple(g.shape), g.stride()))
+        return real1(x, g)
+
+    W.wgrad3x3_s1, W.wgrad1x1 = record3, record1
     try:
         eng.step(state, aux)
         torch.cuda.synchronize()
     finally:
-        W.wgrad3x3_s1 = real
+        W.wgrad3x3_s1, W.wgrad1x1 = real3, real1
     return calls
 
 
-def _strided(shape, stride, gen, dev) -> torch.Tensor:
-    """Seeded normal bf16 values in a tensor of this shape and these strides."""
-    t = torch.empty_strided(shape, stride, dtype=torch.bfloat16, device=dev)
+def _strided(shape, stride, gen, dev, dtype=torch.bfloat16) -> torch.Tensor:
+    """Seeded normal values in a tensor of this shape, strides and dtype."""
+    t = torch.empty_strided(shape, stride, dtype=dtype, device=dev)
     t.copy_(torch.randn(shape, generator=gen, device=dev))
     return t
 
 
-def time_k5(S, call: tuple, gen, dev, label: str) -> dict:
-    """One row: hopper_wgrad.wgrad3x3_s1 in bf16 at one recorded call, held
-    to its plain version, timed beside cuDNN's weight gradient."""
+def library_kernels(fn) -> list[str]:
+    """The names of the device kernels one call of `fn` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def time_wgrad(S, name: str, dtype: torch.dtype, call: tuple, gen, dev, label: str) -> dict:
+    """One row: hopper_wgrad's `name` (wgrad3x3_s1 or wgrad1x1) in `dtype` at
+    one recorded call, held to its plain version, timed beside cuDNN's
+    weight gradient."""
     from dip_tpu_torch.ops import hopper_wgrad as W
 
     halo, xs, xst, gs, gst = call
-    x, g = _strided(xs, xst, gen, dev), _strided(gs, gst, gen, dev)
+    x, g = _strided(xs, xst, gen, dev, dtype), _strided(gs, gst, gen, dev, dtype)
     layout = ("nhwc" if x.is_contiguous() and g.is_contiguous() else
               "planar" if x.permute(0, 3, 1, 2).is_contiguous() and
               g.permute(0, 3, 1, 2).is_contiguous() else "strided")
+    ks = 3 if name == "wgrad3x3_s1" else 1
 
     def kern():
-        return W.wgrad3x3_s1(x, g, halo)
+        return W.wgrad3x3_s1(x, g, halo) if ks == 3 else W.wgrad1x1(x, g)
 
     def library():
-        return torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), (gs[3], xs[3], 3, 3),
+        return torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), (gs[3], xs[3], ks, ks),
                                            g.permute(0, 3, 1, 2), 1, halo)
 
-    want = W.wgrad3x3_s1_plain(x, g, halo)
-    rel, _ = S.rel_err(kern(), want)
+    want = W.wgrad3x3_s1_plain(x, g, halo) if ks == 3 else W.wgrad1x1_plain(x, g)
+    out = kern()
+    rel, _ = S.rel_err(out, want)
     lib_rel, _ = S.rel_err(library().permute(2, 3, 1, 0), want)
-    tol = S.WGRAD_TOL[torch.bfloat16]
+    tol = S.WGRAD_TOL[dtype]
     if rel > tol or lib_rel > tol:
-        raise RuntimeError(f"wgrad3x3_s1 or cuDNN disagrees with the plain version at {call}: "
+        raise RuntimeError(f"{name} or cuDNN disagrees with the plain version at {call} {dtype}: "
                            f"rel {rel:.3e}, {lib_rel:.3e}")
+    digest = hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy()).hexdigest()[:16]
     reps = 30 if gs[1] >= 256 else 100
     ms = min(S.time_ms(kern, reps) for _ in range(3))
     lib_ms = min(S.time_ms(library, reps) for _ in range(3))
     dev_ms, lib_dev_ms = device_ms(kern, reps), device_ms(library, reps)
-    bound_ms, by = S.wgrad_bound(3, xs, gs, torch.bfloat16)
-    row = {"kernel": "wgrad3x3_s1", "dtype": "bfloat16", "halo": halo, "x": list(xs),
-           "g": list(gs), "layout": layout, "ms": ms, "device_ms": dev_ms, "library_ms": lib_ms,
+    bound_ms, by = S.wgrad_bound(ks, xs, gs, dtype)
+    row = {"kernel": name, "dtype": str(dtype)[6:], "halo": halo, "x": list(xs), "g": list(gs),
+           "layout": layout, "ms": ms, "device_ms": dev_ms, "library_ms": lib_ms,
            "library_device_ms": lib_dev_ms, "bound_ms": bound_ms, "bound_by": by,
-           "rel_err": rel}
-    print(f"[seam_times] {label} wgrad3x3_s1 bfloat16 halo {halo} {layout:6s} x {xs} g {gs}: "
+           "rel_err": rel, "digest": digest}
+    print(f"[seam_times] {label} {name} {row['dtype']:8s} halo {halo} {layout:6s} x {xs} g {gs}: "
           f"kernel {ms:.4f} ms (device {dev_ms:.4f}), cudnn {lib_ms:.4f} ms (device "
-          f"{lib_dev_ms:.4f}), bound {bound_ms:.4f} ms ({by}), rel {rel:.2e}", flush=True)
+          f"{lib_dev_ms:.4f}), bound {bound_ms:.4f} ms ({by}), rel {rel:.2e}, digest {digest}",
+          flush=True)
+    if (ks, dtype, gs) == (3, torch.float32, (1, 512, 512, 128)):
+        row["cudnn_kernels"] = library_kernels(library)
+        print(f"[seam_times] {label} cudnn kernels of the f32 3x3 weight gradient at x {xs} "
+              f"g {gs} (TF32 off): {row['cudnn_kernels']}", flush=True)
     return row
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("dgrad", "wgrad", "wgrad3x3_s1"), action="append",
+    ap.add_argument("--kernel", choices=("dgrad", "wgrad") + WGRAD_KERNELS, action="append",
                     help="the kernel to time (repeatable; default dgrad and wgrad)")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), action="append",
+                    help="wgrad3x3_s1 / wgrad1x1: the fit's dtype (repeatable; default bfloat16)")
     ap.add_argument("--min-steps", default=None,
                     help="K2 only: comma list of split floors (steps) to time in turn")
+    ap.add_argument("--waves", default=None,
+                    help="K5 and K6 only: comma list of the split plans' wave targets to time "
+                         "in turn")
     ap.add_argument("--seam", action="append", default=None,
                     help="N,h,w,C,F: time this seam (repeatable) in place of the defaults")
     ap.add_argument("--root", default=None, help="import dip_tpu_torch from this directory")
@@ -196,6 +241,7 @@ def main() -> int:
     from dip_tpu_torch.bench import card_line
     from dip_tpu_torch.fit.engine import disable_tf32
     from dip_tpu_torch.ops import hopper_up_conv as H
+    from dip_tpu_torch.ops import hopper_wgrad as W
 
     disable_tf32()
     dev = torch.device("cuda", 0)
@@ -209,16 +255,37 @@ def main() -> int:
     floors = [None] if args.min_steps is None else [int(x) for x in args.min_steps.split(",")]
     if args.min_steps is not None and not hasattr(H, "dgrad_plan"):
         ap.error(f"--min-steps: {H.__file__} has no dgrad_plan")
+    waves = [None] if args.waves is None else [int(x) for x in args.waves.split(",")]
+    if args.waves is not None and not hasattr(W, "_F32_WAVES"):
+        ap.error(f"--waves: {W.__file__} has no _F32_WAVES")
+    own_waves = getattr(W, "_F32_WAVES", None), getattr(H, "_WG_WAVES", None)
+    calls = {}  # recorded weight-gradient calls, by dtype
     for name in kernels:
-        if name == "wgrad3x3_s1":
-            calls = kate_k5_calls()
-            print(f"[seam_times] {args.label}: {len(calls)} K5 calls in a 'kate' step", flush=True)
-            k5 = [time_k5(S, call, gen, dev, args.label) for call in calls]
-            print(f"[seam_times] {args.label} wgrad3x3_s1 a 'kate' step ({len(k5)} calls): "
-                  f"device {sum(r['device_ms'] for r in k5):.4f} ms, caller "
-                  f"{sum(r['ms'] for r in k5):.4f} ms, cudnn device "
-                  f"{sum(r['library_device_ms'] for r in k5):.4f} ms", flush=True)
-            rows += k5
+        if name in WGRAD_KERNELS:
+            for dname, wv in [(d, v) for d in args.dtype or ["bfloat16"] for v in waves]:
+                dtype = getattr(torch, dname)
+                if dtype not in calls:
+                    calls[dtype] = kate_wgrad_calls(dtype)
+                if wv is not None:
+                    W._F32_WAVES, H._WG_WAVES = wv, {9: wv, 1: wv}
+                    W.f32_plan.cache_clear()
+                    H.wgrad_mma_plan.cache_clear()
+                label = args.label if wv is None else f"{args.label} waves {wv}"
+                mine = calls[dtype][name]
+                print(f"[seam_times] {label}: {len(mine)} {name} calls in a {dname} 'kate' step",
+                      flush=True)
+                got = [dict(time_wgrad(S, name, dtype, call, gen, dev, label), waves=wv)
+                       for call in mine]
+                print(f"[seam_times] {label} {name} {dname} a 'kate' step ({len(got)} calls):"
+                      f" device {sum(r['device_ms'] for r in got):.4f} ms, caller "
+                      f"{sum(r['ms'] for r in got):.4f} ms, cudnn device "
+                      f"{sum(r['library_device_ms'] for r in got):.4f} ms, bound "
+                      f"{sum(r['bound_ms'] for r in got):.4f} ms", flush=True)
+                rows += got
+            if args.waves is not None:  # the checkout's own plans for what follows
+                W._F32_WAVES, H._WG_WAVES = own_waves
+                W.f32_plan.cache_clear()
+                H.wgrad_mma_plan.cache_clear()
             continue
         for floor in floors if name == "dgrad" else [None]:
             if floor is not None:

@@ -303,3 +303,213 @@ def test_kernels_match_plain_versions_on_card():
 
     stats = phase_wgrad_parity(torch.device("cuda", 0))
     assert set(stats) == {"wgrad3x3_s1", "wgrad1x1"}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["planar", "two images"])
+def test_wgrad1x1_plain_matches_pallas_planar_and_batched(jx, case, dtype):
+    """K6's plain version against the Pallas kernel in interpret mode, in
+    both dtypes: on a channel-planar view (the layout the fit hands over),
+    and with N = 2 summed (the Pallas kernel takes one image: its two results
+    are added); Ci and Co off 8."""
+    jax, pw = jx
+    jnp = jax.numpy
+    t = getattr(torch, dtype)
+    n = 1 if case == "planar" else 2
+    if case == "planar":
+        x, g = _planar((1, 32, 32, 12), 22, t), _planar((1, 32, 32, 20), 23, t)
+        assert not x.is_contiguous() and x.permute(0, 3, 1, 2).is_contiguous()
+    else:
+        x = torch.from_numpy(_normal((2, 32, 32, 12), 22)).to(t)
+        g = torch.from_numpy(_normal((2, 32, 32, 20), 23)).to(t)
+    want = sum(np.asarray(_pallas(pw.wgrad1x1, jnp.asarray(x[i].float().numpy(), getattr(jnp, dtype)),
+                                  jnp.asarray(g[i].float().numpy(), getattr(jnp, dtype))))
+               for i in range(n))
+    got = W.wgrad1x1_plain(x, g)
+    assert tuple(got.shape) == want.shape == (1, 1, 12, 20) and got.dtype == torch.float32
+    assert _max_rel(got.numpy(), want) < {"float32": 2e-4, "bfloat16": 1e-3}[dtype]
+
+
+# (N, H, W, Ci, Co) of g with Ci input channels: the 'kate' step's K5 and
+# K6 shapes at 512^2, then ragged and narrow ones
+F32_PLAN_SHAPES = [(1, r, r, 128, 128) for r in (512, 256, 128, 64, 32, 16)] + [
+    (1, 512, 512, 128, 3), (2, 19, 23, 20, 12), (2, 32, 68, 64, 48), (1, 33, 70, 20, 36)]
+
+
+@pytest.mark.parametrize("ks", [3, 1])
+@pytest.mark.parametrize("shape", F32_PLAN_SHAPES)
+def test_f32_split_plan(shape, ks):
+    """f32_plan, which sizes every f32 K5 and K6 launch: its splits cover
+    the N*H*ceil(W/64) row tiles exactly once, in order, at least one tile
+    a split; about one wave of blocks on the H100's 132 SMs and no more
+    (all of it where there are enough tiles); the workspace is one f32
+    (ks*ks, Ci, Co rounded up to 4) slab a split; and the plan depends on
+    the shape alone."""
+    n, h, w, ci, co = shape
+    plan = W.f32_plan(n, h, w, ci, co, ks)
+    tiles = n * h * -(-w // 64)
+    per = plan.tiles_per_split
+    assert plan.tiles == tiles and plan.splits >= 1
+    covered = np.zeros(tiles, dtype=np.int64)
+    for s in range(plan.splits):
+        covered[s * per:min((s + 1) * per, tiles)] += 1
+    assert (covered == 1).all() and (plan.splits - 1) * per < tiles
+    bk = 16 if co <= 16 else (64 if ks == 3 else 128)
+    blocks = -(-ci // 128) * -(-co // bk) * (3 if ks == 3 else 1)
+    assert plan.block_cols == bk and plan.grid == (blocks, plan.splits)
+    assert blocks * (plan.splits - 1) < 132
+    if per > 1:  # one tile fewer a split would take more than a wave
+        assert blocks * -(-tiles // (per - 1)) > 132
+    assert plan.workspace == (plan.splits, ks * ks, ci, -(-co // 4) * 4)
+    W.f32_plan.cache_clear()
+    assert W.f32_plan(n, h, w, ci, co, ks) == plan
+    if shape == F32_PLAN_SHAPES[0] and ks == 3:
+        # the top 'kate' shape: 6 block kinds x 22 splits of 187 tiles, 13 MB
+        assert (plan.grid, plan.tiles_per_split) == ((6, 22), 187)
+        assert 4 * np.prod(plan.workspace) == pytest.approx(13e6, rel=0.01)
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 512, 128, 128), (1, 512, 512, 128, 8),
+                                   (2, 33, 70, 24, 40), (1, 16, 16, 128, 128)])
+def test_wgrad_mma_plan_one_tap(shape):
+    """The bf16 K6 plan: wgrad_mma_plan with one tap covers the N*h*w pixels
+    once in whole 8x16 tiles, on one wave of blocks at most, with no
+    kernel-row factor in its grid and one f32 (1, Ci, Co rounded up to 4)
+    slab a split; with nine taps it is the 3x3 plan."""
+    from dip_tpu_torch.ops import hopper_up_conv as H
+
+    n, h, w, ci, co = shape
+    plan = H.wgrad_mma_plan(n, h, w, ci, co, 1)
+    tiles = n * -(-h // 8) * -(-w // 16)
+    assert plan.tiles == tiles and sum(plan.pixels) == n * h * w
+    assert (plan.splits - 1) * plan.tiles_per_split < tiles <= plan.splits * plan.tiles_per_split
+    blocks = -(-ci // 64) * -(-co // 128)
+    assert plan.grid == (blocks, plan.splits) and blocks * (plan.splits - 1) < 132
+    assert plan.workspace == (plan.splits, 1, ci, -(-co // 4) * 4)
+    assert H.wgrad_mma_plan(n, h, w, ci, co, 9) == H.wgrad3x3_plan(n, h, w, ci, co)
+    with pytest.raises(ValueError):
+        H.wgrad_mma_plan(n, h, w, ci, co, 4)
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records each entry's arguments and
+    returns 0 (success) without touching the buffers."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("dip_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """Routes the wrappers to _FakeLib as if every tensor were on a card,
+    and counts the dense copies the bf16 path makes."""
+    from dip_tpu_torch.ops import _build
+
+    lib = _FakeLib()
+    lib.copies = []
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "on_cpu", lambda **tensors: False)
+    monkeypatch.setattr(_build, "stream", lambda: None)
+    real_dense = W._dense
+
+    def dense(t):
+        out = real_dense(t)
+        if out is not t:
+            lib.copies.append(tuple(t.shape))
+        return out
+
+    monkeypatch.setattr(W, "_dense", dense)
+    return lib
+
+
+@pytest.mark.parametrize("ks,halo", [(3, 0), (3, 1), (1, 0)])
+def test_f32_wrappers_pass_planar_strides_and_copy_nothing(fake_lib, ks, halo):
+    """f32 K5 and K6 on channel-planar x and g: one dip_wgrad_f32 call with
+    the tensors' own pointers and element strides (no copy), the shape, the
+    plan's splits, tiles a split and slab pitch; one launch counted."""
+    h = 12
+    hx = h + 2 - 2 * halo if ks == 3 else h
+    x, g = _planar((2, hx, hx + 3, 12), 24, torch.float32), _planar((2, h, h + 3, 20), 25, torch.float32)
+    W.reset_launches()
+    dw = W.wgrad3x3_s1(x, g, halo) if ks == 3 else W.wgrad1x1(x, g)
+    assert tuple(dw.shape) == (ks, ks, 12, 20) and dw.dtype == torch.float32
+    assert W.LAUNCHES == {"wgrad3x3_s1": int(ks == 3), "wgrad1x1": int(ks == 1)}
+    [(name, args)] = fake_lib.calls
+    plan = W.f32_plan(2, h, h + 3, 12, 20, ks)
+    assert name == "dip_wgrad_f32"
+    assert args[0] == x.data_ptr() and args[1] == g.data_ptr()
+    assert args[4:11] == (2, h, h + 3, hx, hx + 3, 12, 20)
+    assert args[11:19] == (*x.stride(), *g.stride())
+    assert args[19:24] == (ks, halo, plan.splits, plan.tiles_per_split, plan.workspace[3])
+    assert fake_lib.copies == []
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "planar"])
+def test_bf16_wgrad1x1_runs_the_mma_entry(fake_lib, layout):
+    """bf16 K6 calls dip_wgrad1x1_mma on NHWC-dense operands: an NHWC x and
+    g pass through, a channel-planar one is copied once each; sized by the
+    one-tap plan; a launch counted."""
+    from dip_tpu_torch.ops import hopper_up_conv as H
+
+    if layout == "planar":
+        x, g = _planar((1, 16, 24, 16), 26), _planar((1, 16, 24, 32), 27)
+    else:
+        x = torch.from_numpy(_normal((1, 16, 24, 16), 26)).to(torch.bfloat16)
+        g = torch.from_numpy(_normal((1, 16, 24, 32), 27)).to(torch.bfloat16)
+    W.reset_launches()
+    dw = W.wgrad1x1(x, g)
+    assert tuple(dw.shape) == (1, 1, 16, 32) and W.LAUNCHES["wgrad1x1"] == 1
+    [(name, args)] = fake_lib.calls
+    plan = H.wgrad_mma_plan(1, 16, 24, 16, 32, 1)
+    assert name == "dip_wgrad1x1_mma"
+    assert args[4:] == (1, 16, 24, 16, 32, plan.splits, plan.tiles_per_split, 1, None)
+    passed = (args[0] == x.data_ptr(), args[1] == g.data_ptr())
+    assert passed == ((True, True) if layout == "nhwc" else (False, False))
+    assert fake_lib.copies == ([] if layout == "nhwc" else [tuple(x.shape), tuple(g.shape)])
+
+
+def test_bf16_wgrad1x1_pads_channels_off_8():
+    """The bf16 1x1's operands come padded with zero channels to a multiple
+    of 8 (the 3-channel head's g), NHWC-dense, with the same values; a
+    multiple of 8 passes through."""
+    g = _planar((1, 8, 10, 3), 28)
+    gp = W._pad8(g)
+    assert tuple(gp.shape) == (1, 8, 10, 8) and gp.is_contiguous() and gp.data_ptr() % 16 == 0
+    assert torch.equal(gp[..., :3], g) and not gp[..., 3:].any()
+    x = torch.from_numpy(_normal((1, 8, 10, 16), 29)).to(torch.bfloat16)
+    assert W._pad8(x) is x
+    # the zero channels add nothing (the CPU einsum's order of sums may differ)
+    torch.testing.assert_close(W.wgrad1x1_plain(gp, gp)[..., :3, :3], W.wgrad1x1_plain(g, g),
+                               rtol=1e-6, atol=1e-5)
+
+
+def test_bf16_head_wgrad1x1_cuts_the_padding(fake_lib):
+    """A 1x1 with Co = 3 runs the kernel on 8 columns and hands back the
+    (1,1,Ci,3) part of its result."""
+    x = torch.from_numpy(_normal((1, 8, 16, 16), 30)).to(torch.bfloat16)
+    g = torch.from_numpy(_normal((1, 8, 16, 3), 31)).to(torch.bfloat16)
+    dw = W.wgrad1x1(x, g)
+    [(name, args)] = fake_lib.calls
+    assert name == "dip_wgrad1x1_mma" and args[4:9] == (1, 8, 16, 16, 8)
+    assert tuple(dw.shape) == (1, 1, 16, 3)
+
+
+def test_bf16_wgrad3x3_call_is_unchanged(fake_lib):
+    """bf16 K5 still calls dip_wgrad3x3_mma with the 3x3 plan, on x padded
+    by one zero pixel for halo 1 (one copy) and g as it is."""
+    from dip_tpu_torch.ops import hopper_up_conv as H
+
+    x = torch.from_numpy(_normal((1, 16, 24, 16), 32)).to(torch.bfloat16)
+    g = torch.from_numpy(_normal((1, 16, 24, 32), 33)).to(torch.bfloat16)
+    dw = W.wgrad3x3_s1(x, g, 1)
+    assert tuple(dw.shape) == (3, 3, 16, 32)
+    [(name, args)] = fake_lib.calls
+    plan = H.wgrad3x3_plan(1, 16, 24, 16, 32)
+    assert name == "dip_wgrad3x3_mma"
+    assert args[1] == g.data_ptr() and args[0] != x.data_ptr()
+    assert args[4:] == (1, 16, 24, 16, 32, plan.splits, plan.tiles_per_split, 1, None)
