@@ -15,9 +15,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      'library' / restoration 'kate' seams (C, F = 16..128), timed there;
      the data and weight gradients (whose reductions may be split) launched
      twice at every seam, the two results bitwise equal; the downsample
-     kernel against its plain version at
-     the SR geometries (x4 and x8 at HR 384x576, a ragged batch, gauss12,
-     box, preserve_size=False), with times; the s2d pack (bitwise) at the
+     kernel against its plain version at the SR geometries (x4 and x8 at HR
+     384x576, a ragged batch, gauss12, box, preserve_size=False) and at the
+     128-channel post-down of a 512^2 Skip's top scale, with times, and its
+     bound at x4, x8 and 128 channels; the s2d pack (bitwise) at the
      five 'kate' seam cotangents, NHWC and channel-planar, and ragged; the
      3x3 and 1x1 weight-gradient kernels at the 'kate' shapes in bf16 and
      f32, NHWC and channel-planar, and at ragged and narrow shapes,
@@ -32,24 +33,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
      the masked MSE;
   5. main paths, each through run_task for 30 steps: the flagship
      denoising fit (tasks.denoise 'f16', 512^2) in bf16 and f32; the SR fit
-     (tasks.super_resolve x4, HR 384x576) in bf16, f32 and bf16 with the
-     carry-in; inpainting 'kate' (512^2, 128-channel skips) with the
-     weight-gradient kernels on, in bf16 and f32, and off; inpainting
-     'library' (6 scales, weight jitter), restoration 'barbara' (50 % of
-     the pixels) and restoration 'kate' (avg-pool downsampling), in bf16.
+     (tasks.super_resolve, HR 384x576) at x4 in bf16, f32 and bf16 with the
+     carry-in, and at x8 in bf16; inpainting 'kate' (512^2, 128-channel
+     skips) with the weight-gradient kernels on, in bf16 and f32, and off;
+     inpainting 'library' (6 scales, weight jitter), restoration 'barbara'
+     (50 % of the pixels) and restoration 'kate' (avg-pool downsampling),
+     in bf16.
      Launch counters, set to 0 just before each fit and read just after
      it, must equal what the model implies: every step went through the
      kernels;
-  6. no host sync: three more steps per dtype of the flagship, SR and
-     inpainting 'kate' fits (weight-gradient kernels and weight jitter
-     on) under torch's sync debug mode, which raises on any call that
-     waits for the device.
+  6. no host sync: three more steps per dtype of the flagship, SR (x4, and
+     x8 in bf16) and inpainting 'kate' fits (weight-gradient kernels and
+     weight jitter on) under torch's sync debug mode, which raises on any
+     call that waits for the device.
 The last three lines are the card line, a JSON object of the kernels (each
 with its launches on a main path, error, times, and the bound of this
 run's shapes on an H100: bytes at 3.35 TB/s against operations at 989
 TFLOP/s bf16 or 67 TFLOP/s f32 FMA; the weight gradients' rows give their
 bf16 figures as the row's own, their f32 figures under "f32" and each
-dtype's source under "sources"), and {"ok": true, "device": {...}}.
+dtype's source under "sources"; the downsample's row gives SR x4 as its
+own and x4, x8 and 128 channels under "shapes"), and {"ok": true,
+"device": {...}}.
 Without a CUDA device it exits 1 at once.
 """
 
@@ -147,7 +151,10 @@ DOWN_CASES = [
     ((1, *SR_HR, 3), 2, "gauss12", 0.0, True, None),
     ((1, *SR_HR, 3), 4, "box", 0.5, True, 4),
     ((1, *SR_HR, 3), 4, "lanczos2", 0.5, False, None),
+    ((1, 512, 512, 128), 2, "lanczos2", 0.5, True, None),  # a 512^2 Skip's top post-down
 ]
+# timed with their bounds: SR x4 (the row's own figures), SR x8, 128 channels
+DOWN_TIMED = [DOWN_CASES[0], DOWN_CASES[1], DOWN_CASES[-1]]
 
 
 def log(msg: str) -> None:
@@ -169,6 +176,30 @@ def time_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """The device time of one call of `fn`: CUDA events around the replay
+    of a CUDA graph that holds `reps` calls, so no host launch cost sits
+    between them (a loop of calls shorter than their launch reads the
+    host's pace, which time_ms does)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # device constants and shared-memory limits, before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -339,49 +370,79 @@ def phase_kernel_parity(dev: torch.device) -> dict:
     return stats
 
 
+def down_bound(shape, ksize: int, h_out: int, w_out: int) -> tuple[float, str]:
+    """The downsample's bound at x (N,H,W,C): an H pass of K f32 FMA over
+    every input column of each output row, then a W pass of K, against x
+    read and the output written once."""
+    n, _, w_in, c = shape
+    ops = 2.0 * ksize * n * h_out * c * (w_in + w_out)
+    return bound(ops, "f32", 4 * (int(np.prod(shape)) + n * h_out * w_out * c))
+
+
+def down_calls(HR, R, case, gen, dev) -> tuple:
+    """(kernel, plain version, K, h_out, w_out) of one DOWN_CASES entry on
+    seeded inputs, through the downsample module `HR` (ops/hopper_resample
+    of some checkout)."""
+    shape, factor, ktype, phase, preserve, width = case
+    x = torch.rand(shape, generator=gen, device=dev)
+    spec = R._spec(factor, ktype, phase, width, None, None)
+    pad, h_out, w_out = R._geometry(x.shape, spec, preserve)
+    taps = R.device_const(R._profile, spec, torch.float32, dev)
+
+    def kern():
+        return HR.downsample_fused(x, taps, factor, pad, h_out, w_out)
+
+    def plain():
+        return R.downsample_plain(x, factor, ktype, phase, preserve, width)
+
+    return kern, plain, taps.shape[0], h_out, w_out
+
+
 def phase_downsample_parity(dev: torch.device) -> dict:
-    """The downsample kernel against downsample_plain on the card."""
+    """The downsample kernel against downsample_plain on the card; its
+    times (the kernel's and the plain version's from a CUDA graph of
+    launches, and the caller's pace) and bounds at DOWN_TIMED ("shapes";
+    SR x4's also as the row's own figures)."""
     from dip_tpu_torch.ops import hopper_resample as HR
     from dip_tpu_torch.ops import resample as R
 
-    stats = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    stats = {"max_abs_err": 0.0, "max_rel_err": 0.0, "shapes": []}
     gen = torch.Generator(device=dev).manual_seed(1)
-    for shape, factor, ktype, phase, preserve, width in DOWN_CASES:
-        x = torch.rand(shape, generator=gen, device=dev)
-        spec = R._spec(factor, ktype, phase, width, None, None)
-        pad, h_out, w_out = R._geometry(x.shape, spec, preserve)
-        taps = R.device_const(R._profile, spec, torch.float32, dev)
-
-        def kern():
-            return HR.downsample_fused(x, taps, factor, pad, h_out, w_out)
-
-        def plain():
-            return R.downsample_plain(x, factor, ktype, phase, preserve, width)
-
+    for case in DOWN_CASES:
+        shape, factor, ktype, phase, preserve, _ = case
+        kern, plain, ksize, h_out, w_out = down_calls(HR, R, case, gen, dev)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         if got.shape != want.shape or got.shape != (shape[0], h_out, w_out, shape[3]):
             raise RuntimeError(f"downsample {tuple(got.shape)} vs {tuple(want.shape)}")
         rel, abs_err = rel_err(got, want)
-        ms, plain_ms = time_ms(kern, 50), time_ms(plain, 50)
+        # a launch is shorter than the host's cost of one: device time from
+        # a graph of launches, beside the caller's pace
+        ms, plain_ms = graph_ms(kern, 100), graph_ms(plain, 20)
+        caller_ms = time_ms(kern, 50)
         stats["max_abs_err"] = max(stats["max_abs_err"], abs_err)
         stats["max_rel_err"] = max(stats["max_rel_err"], rel)
-        if (factor, ktype, preserve, shape[0]) == (4, "lanczos2", True, 1):
-            # an H pass of K taps over every input column of each output
-            # row, then a W pass of K taps: f32 FMA
-            n, _, w_in, c = shape
-            ops = 2.0 * taps.shape[0] * n * h_out * c * (w_in + w_out)
-            bound_ms, by = bound(ops, "f32", 4 * (x.numel() + got.numel()))
-            # no one PyTorch call: a strided conv needs the replication pad first
-            stats.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                         bound_by=by)
-        log(f"[parity] downsample {tuple(shape)} x{factor} {ktype} phase {phase} "
-            f"preserve {preserve} -> {tuple(got.shape)} K={taps.shape[0]} p={pad} "
-            f"tile {HR.tile_plan(taps.shape[0], factor, shape[3])[:2]}: rel {rel:.2e} "
-            f"abs {abs_err:.2e} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        plan = HR.tile_plan(ksize, factor, shape[0], shape[3], h_out, w_out)
+        line = (f"[parity] downsample {tuple(shape)} x{factor} {ktype} phase {phase} "
+                f"preserve {preserve} -> {tuple(got.shape)} K={ksize}: tiles "
+                f"{plan.tile_h}x{plan.tile_w}, {plan.cg} channels, {plan.blocks} blocks, "
+                f"{plan.smem} B shared: rel {rel:.2e} abs {abs_err:.2e} | kernel {ms:.5f} ms "
+                f"(caller {caller_ms:.4f} ms), plain {plain_ms:.4f} ms")
+        if case in DOWN_TIMED:
+            bound_ms, by = down_bound(shape, ksize, h_out, w_out)
+            line += f", bound {bound_ms:.5f} ms ({by})"
+            stats["shapes"].append({"shape": list(shape), "factor": factor, "ms": ms,
+                                    "caller_ms": caller_ms, "plain_ms": plain_ms,
+                                    "bound_ms": bound_ms, "bound_by": by})
+            if case == DOWN_TIMED[0]:
+                # no one PyTorch call: a strided conv needs the replication pad first
+                stats.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                             bound_by=by)
+        log(line)
         if rel > DOWN_TOL:
             raise RuntimeError(f"downsample disagrees with its plain version: "
                                f"rel {rel:.3e} > {DOWN_TOL}")
+        del got, want
     return stats
 
 
@@ -682,27 +743,30 @@ def synthetic_sr(factor: int = 4) -> tuple[np.ndarray, np.ndarray]:
     return hr[None].astype(np.float32), lr[None].astype(np.float32)
 
 
-def _sr_spec(cd: str | None, carry: bool):
+def _sr_spec(cd: str | None, carry: bool, factor: int = 4):
     from dip_tpu_torch.tasks import super_resolve
 
-    hr, lr = synthetic_sr()
-    spec = super_resolve.task(lr, factor=4, hr_gt=hr, num_iter=MAIN_STEPS)
+    hr, lr = synthetic_sr(factor)
+    spec = super_resolve.task(lr, factor=factor, hr_gt=hr, num_iter=MAIN_STEPS)
     spec.model.seam_carry = carry
     return dataclasses.replace(spec, cfg=dataclasses.replace(
         spec.cfg, compute_dtype=cd, log_every=10))
 
 
 def phase_sr_path(dev: torch.device, card: str) -> dict:
-    """The SR fit (x4, HR 384x576, Skip 5x128) through run_task, in bf16,
-    in f32 and in bf16 with the seam's carry-in: falling loss, rising
-    psnr_lr, and the launch counts the code implies (one downsample in the
-    loss and one in the metrics a step; its backward is PyTorch)."""
-    log("[sr] LR observation: 4x4 block mean of a synthetic HR image made with numpy "
-        "(the recipe's PIL Lanczos LR is covered by the CPU tests)")
+    """The SR fit (HR 384x576, Skip 5x128) through run_task: x4 in bf16, in
+    f32 and in bf16 with the seam's carry-in, and x8 (LR 48x72) in bf16:
+    falling loss, rising psnr_lr, and the launch counts the code implies
+    (one downsample in the loss and one in the metrics a step; its backward
+    is PyTorch)."""
+    log("[sr] LR observation: a factor x factor block mean of a synthetic HR image made "
+        "with numpy (the recipe's PIL Lanczos LR is covered by the CPU tests)")
     total: dict = {}
-    for cd, carry in (("bfloat16", False), (None, False), ("bfloat16", True)):
-        spec = _sr_spec(cd, carry)
-        delta = run_fit(spec, dev, card, "sr", (cd or "float32") + (" carry" if carry else ""),
+    for cd, carry, factor in (("bfloat16", False, 4), (None, False, 4), ("bfloat16", True, 4),
+                              ("bfloat16", False, 8)):
+        spec = _sr_spec(cd, carry, factor)
+        tag = f"x{factor} {cd or 'float32'}" + (" carry" if carry else "")
+        delta = run_fit(spec, dev, card, "sr", tag,
                         path_launches(spec.model, MAIN_STEPS, downsample_per_step=2), "psnr_lr")
         total = {k: total.get(k, 0) + v for k, v in delta.items()}
     return total
@@ -792,9 +856,9 @@ def phase_steps_without_sync(dev: torch.device) -> None:
         spec = denoise.task(noisy, "f16", gt=clean)
         spec = dataclasses.replace(spec, cfg=dataclasses.replace(spec.cfg, compute_dtype=cd))
         _steps_without_sync(spec, dev, f"flagship {cd or 'float32'}")
-    for cd, carry in (("bfloat16", True), (None, False)):
-        _steps_without_sync(_sr_spec(cd, carry), dev,
-                            f"sr {cd or 'float32'}{' carry' if carry else ''}")
+    for cd, carry, factor in (("bfloat16", True, 4), (None, False, 4), ("bfloat16", False, 8)):
+        _steps_without_sync(_sr_spec(cd, carry, factor), dev,
+                            f"sr x{factor} {cd or 'float32'}{' carry' if carry else ''}")
     for cd in ("bfloat16", None):
         _steps_without_sync(_masked_spec("inpaint", "kate", cd, "all", param_noise=True), dev,
                             f"inpaint kate {cd or 'float32'} conv_wgrad=all param_noise")
@@ -833,7 +897,9 @@ def main() -> int:
     kernels = [_entry(f"up_conv_{k}", src_rep,
                       (sr_launches if k == "fwd_carry" else launches)[k], stats[k])
                for k, src_rep in KERNELS.items()]
-    kernels.append(_entry("downsample_fused", DOWNSAMPLE, sr_launches["downsample"], down))
+    entry = _entry("downsample_fused", DOWNSAMPLE, sr_launches["downsample"], down)
+    entry["shapes"] = down["shapes"]
+    kernels.append(entry)
     kernels.append(_entry("s2d_pack", S2D, launches["s2d_pack"], s2d))
     for k, src_rep in WGRAD.items():
         entry = _entry(k, src_rep, masked_launches[k], wgrad[k])

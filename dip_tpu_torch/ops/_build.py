@@ -112,7 +112,9 @@ def load() -> ctypes.CDLL:
     # x, g, workspace, dW, n, h, w, ci, co, splits, tiles a split, f32, stream
     lib.dip_wgrad3x3_mma.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
     lib.dip_wgrad1x1_mma.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
-    lib.dip_downsample.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [ptr]
+    # x, taps, out, n, h, w, c, h_out, w_out, factor, K, pad, tile_h, tile_w,
+    # channels a block, stream
+    lib.dip_downsample.argtypes = [ptr, ptr, ptr] + [i32] * 12 + [ptr]
     # x, out, n, h/2, w/2, c, x's 4 strides, in f32, out f32, stream
     lib.dip_s2d_pack.argtypes = [ptr, ptr] + [i32] * 4 + [i64] * 4 + [i32] * 2 + [ptr]
     # x, g, workspace, dW, n, h, w, hx, wx, ci, co, x's and g's 4 strides,

@@ -1,9 +1,11 @@
 """Time the seam's data-gradient (K2) and weight-gradient (K3) kernels on
-one CUDA card at the seams chip_smoke.py holds them to, or the conv weight
+one CUDA card at the seams chip_smoke.py holds them to, the conv weight
 gradients (K5, `hopper_wgrad.wgrad3x3_s1`; K6, `hopper_wgrad.wgrad1x1`) at
-the calls an inpainting 'kate' step makes, beside the one library call that
-computes the same function (cuDNN's transposed conv for K2, its weight
-gradient for K3, K5 and K6) and the bound of each shape.
+the calls an inpainting 'kate' step makes, or the downsample (K7,
+`hopper_resample.downsample_fused`) at chip_smoke.DOWN_TIMED, beside the one
+library call that computes the same function (cuDNN's transposed conv for
+K2, its weight gradient for K3, K5 and K6; K7 has none) and the bound of
+each shape.
 
 Two times a call, for the kernel's wrapper and for the library call: `ms`,
 the best of three back-to-back loops timed with CUDA events (what a caller
@@ -11,9 +13,10 @@ waits, launch costs included: at the small seams the host's pace), and
 `device_ms`, the summed device time of the kernels the call launches, from
 torch.profiler (what the card spends).
 
-    python3 seam_times.py [--kernel dgrad|wgrad|wgrad3x3_s1|wgrad1x1]
+    python3 seam_times.py [--kernel dgrad|wgrad|wgrad3x3_s1|wgrad1x1|downsample]
                           [--dtype bfloat16|float32] [--min-steps LIST] [--waves LIST]
-                          [--seam N,h,w,C,F] [--root DIR] [--label NAME] [--out FILE]
+                          [--seam N,h,w,C,F] [--down-plan TH,TW,CG] [--reps N]
+                          [--root DIR] [--label NAME] [--out FILE]
 
 `--kernel` is repeatable; without it K2 and K3 are timed. Each K2 and K3
 row carries a digest of the kernel's output (the inputs come from one
@@ -35,6 +38,19 @@ place of the checkout's own floor; each K2 row names its split count.
 waves of blocks on the card's SMs that the f32 and the mma split plans aim
 at, `hopper_wgrad._F32_WAVES` and `hopper_up_conv._WG_WAVES`) in place of
 the checkout's own.
+`--kernel downsample` times K7 at SR x4 and x8 (HR 384x576x3) and at the
+128-channel post-down of a 512^2 Skip ((1,512,512,128), x2), each held to
+downsample_plain at chip_smoke.DOWN_TOL first; each reading is over
+`--reps` launches (default 500; at this size one launch reads a few
+microseconds). A launch there is shorter than the host's cost of one, so
+its rows add `graph_ms`: CUDA events around a CUDA graph of `--reps`
+launches (chip_smoke.graph_ms), the device's pace with no host between
+launches; the plain version is timed the same way. Each row carries a
+digest of the output (the inputs are seeded by the shape, so the digest is
+equal across checkouts and plans iff the bits are).
+`--down-plan TH,TW,CG` (repeatable) times it once for each tile plan of the
+list (output tile rows, columns, channels a block) in place of
+`hopper_resample.tile_plan`'s, at the shapes with at least CG channels.
 `--seam` (repeatable) times the given seams in place of the default ones:
 the five flagship seams, the ragged seam, the seams that cut the tiles
 raggedly and the four 'library' seams (chip_smoke.FLAGSHIP_SEAMS,
@@ -215,9 +231,52 @@ def time_wgrad(S, name: str, dtype: torch.dtype, call: tuple, gen, dev, label: s
     return row
 
 
+def time_downsample(S, HR, R, case: tuple, gen, dev, label: str, reps: int,
+                    plan: tuple | None = None) -> dict:
+    """One row: the downsample module `HR` at one chip_smoke.DOWN_CASES
+    entry, held to its plain version, then timed (`reps` launches a
+    reading) beside it; with `plan` (tile rows, columns, channels) in place
+    of HR's own tile plan."""
+    shape, factor = case[0], case[1]
+    kern, plain, ksize, h_out, w_out = S.down_calls(HR, R, case, gen, dev)
+    own = getattr(HR, "tile_plan", None)
+    if plan is not None:
+        th, tw, cg = plan
+        forced = HR.Plan(th, tw, cg, HR.smem_bytes(th, tw, cg, factor, ksize), 0)
+        HR.tile_plan = lambda *a: forced
+    try:
+        out = kern()
+        rel, _ = S.rel_err(out, plain())
+        if rel > S.DOWN_TOL:
+            raise RuntimeError(f"downsample disagrees with its plain version at {case}: "
+                               f"rel {rel:.3e}")
+        digest = hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy()).hexdigest()[:16]
+        ms = min(S.time_ms(kern, reps) for _ in range(3))
+        dev_ms = device_ms(kern, reps)
+        g_ms = min(S.graph_ms(kern, reps) for _ in range(3))
+        plain_ms = S.graph_ms(plain, max(reps // 10, 10))
+        used = (HR.tile_plan(ksize, factor, shape[0], shape[3], h_out, w_out)
+                if hasattr(HR, "Plan") else None)
+    finally:
+        if own is not None:
+            HR.tile_plan = own
+    bound_ms, by = S.down_bound(shape, ksize, h_out, w_out)
+    row = {"kernel": "downsample", "shape": list(shape), "factor": factor, "ksize": ksize,
+           "plan": None if used is None else list(used[:3]), "ms": ms, "device_ms": dev_ms,
+           "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "rel_err": rel,
+           "reps": reps, "digest": digest}
+    tiles = "" if used is None else f" tiles {used[0]}x{used[1]}x{used[2]}"
+    print(f"[seam_times] {label} downsample {tuple(shape)} x{factor} K={ksize}{tiles}: "
+          f"kernel {ms:.5f} ms (device {dev_ms:.5f}, graph {g_ms:.5f}), plain {plain_ms:.4f} "
+          f"ms (graph), bound "
+          f"{bound_ms:.5f} ms ({by}), rel {rel:.2e}, digest {digest}", flush=True)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("dgrad", "wgrad") + WGRAD_KERNELS, action="append",
+    ap.add_argument("--kernel", choices=("dgrad", "wgrad") + WGRAD_KERNELS + ("downsample",),
+                    action="append",
                     help="the kernel to time (repeatable; default dgrad and wgrad)")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), action="append",
                     help="wgrad3x3_s1 / wgrad1x1: the fit's dtype (repeatable; default bfloat16)")
@@ -228,6 +287,11 @@ def main() -> int:
                          "in turn")
     ap.add_argument("--seam", action="append", default=None,
                     help="N,h,w,C,F: time this seam (repeatable) in place of the defaults")
+    ap.add_argument("--down-plan", action="append", default=None,
+                    help="downsample only: TH,TW,CG, a tile plan to time in place of the "
+                         "checkout's own (repeatable)")
+    ap.add_argument("--reps", type=int, default=500,
+                    help="downsample only: launches a reading")
     ap.add_argument("--root", default=None, help="import dip_tpu_torch from this directory")
     ap.add_argument("--label", default="change")
     ap.add_argument("--out", default=None, help="write the rows to this JSON file")
@@ -240,8 +304,10 @@ def main() -> int:
         sys.path.insert(0, str(Path(args.root).resolve()))
     from dip_tpu_torch.bench import card_line
     from dip_tpu_torch.fit.engine import disable_tf32
+    from dip_tpu_torch.ops import hopper_resample as HR
     from dip_tpu_torch.ops import hopper_up_conv as H
     from dip_tpu_torch.ops import hopper_wgrad as W
+    from dip_tpu_torch.ops import resample as R
 
     disable_tf32()
     dev = torch.device("cuda", 0)
@@ -260,7 +326,19 @@ def main() -> int:
         ap.error(f"--waves: {W.__file__} has no _F32_WAVES")
     own_waves = getattr(W, "_F32_WAVES", None), getattr(H, "_WG_WAVES", None)
     calls = {}  # recorded weight-gradient calls, by dtype
+    down_plans = [None] if args.down_plan is None else [
+        tuple(int(v) for v in p.split(",")) for p in args.down_plan]
+    if args.down_plan is not None and not hasattr(HR, "Plan"):
+        ap.error(f"--down-plan: {HR.__file__} has no Plan")
     for name in kernels:
+        if name == "downsample":
+            for plan, case in [(p, c) for p in down_plans for c in S.DOWN_TIMED]:
+                if plan is not None and plan[2] > case[0][3]:
+                    continue  # a forced plan applies where its channel group fits
+                label = args.label if plan is None else f"{args.label} plan {plan}"
+                seeded = torch.Generator(device=dev).manual_seed(S.DOWN_CASES.index(case))
+                rows.append(time_downsample(S, HR, R, case, seeded, dev, label, args.reps, plan))
+            continue
         if name in WGRAD_KERNELS:
             for dname, wv in [(d, v) for d in args.dtype or ["bfloat16"] for v in waves]:
                 dtype = getattr(torch, dname)

@@ -6,6 +6,10 @@ Tolerances: the kernel profiles are the same float64 numpy on both sides
 (atol 1e-12). The downsample is two f32 banded products on both sides,
 summed in another order: atol 2e-5 against inputs in [0, 1), as the JAX
 package's own Pallas-vs-XLA test. Its gradient: atol 1e-6, as that test.
+The Hopper kernel's blocked algorithm, emulated in torch (its tiles,
+channel groups, window staging and the two passes; the CUDA source itself
+needs the card): atol 1e-6, since it sums the same f32 terms in the plain
+version's tap order.
 """
 
 import numpy as np
@@ -130,18 +134,148 @@ def test_envelope_and_devices():
     assert HR.LAUNCHES == {"downsample": 0}
 
 
-@pytest.mark.parametrize("ksize,factor,c", [(16, 4, 3), (32, 8, 3), (12, 3, 3), (7, 2, 3),
-                                            (16, 4, 64), (96, 8, 3), (192, 32, 3),
-                                            (1000, 250, 1)])
-def test_tile_plan_fits_shared_memory(ksize, factor, c):
-    """The plan fits the static 48 KiB for kernels far wider than any
-    preset makes, and the SR presets (x4, x8) get 8x8 output tiles of all
-    three channels."""
-    tile, ct, smem = HR.tile_plan(ksize, factor, c)
-    assert smem == 4 * (tile * ((tile - 1) * factor + ksize) * ct + ksize) <= HR.SMEM_BUDGET
-    assert 1 <= ct <= min(c, 4) and 1 <= tile <= 8
-    if (factor, c) in ((4, 3), (8, 3)) and ksize <= 32:
-        assert (tile, ct) == (8, 3)
+# (K, f, N, C, h_out, w_out): SR x4 and x8 at HR 384x576 (lanczos2), a
+# ragged batch at x3, gauss12 at x2, 64 channels at x4, a kernel wider than
+# any preset (past two blocks an SM), two far wider that do not fit, the
+# 128-channel post-down of a 512^2 Skip's top scale, lanczos3 x4 and x8. The
+# ids of the first eight are (K, f, C).
+PLAN_CASES = [
+    pytest.param(16, 4, 1, 3, 96, 144, id="16-4-3"),
+    pytest.param(32, 8, 1, 3, 48, 72, id="32-8-3"),
+    pytest.param(12, 3, 2, 3, 23, 14, id="12-3-3"),
+    pytest.param(7, 2, 1, 3, 192, 288, id="7-2-3"),
+    pytest.param(16, 4, 1, 64, 24, 36, id="16-4-64"),
+    pytest.param(96, 8, 1, 3, 48, 72, id="96-8-3"),
+    pytest.param(192, 32, 1, 3, 12, 18, id="192-32-3"),
+    pytest.param(1000, 250, 1, 1, 2, 2, id="1000-250-1"),
+    pytest.param(8, 2, 1, 128, 256, 256, id="8-2-128"),
+    pytest.param(24, 4, 1, 3, 96, 144, id="24-4-3"),
+    pytest.param(48, 8, 1, 3, 48, 72, id="48-8-3"),
+]
+
+
+def _blocks(n, c, h_out, w_out, tile_h, tile_w, cg):
+    return n * -(-h_out // tile_h) * -(-w_out // tile_w) * -(-c // cg)
+
+
+@pytest.mark.parametrize("ksize,factor,n,c,h_out,w_out", PLAN_CASES)
+def test_tile_plan_fits_shared_memory(ksize, factor, n, c, h_out, w_out):
+    """The plan's shared memory is csrc/resample.cu's formula and within the
+    227 KB a block may opt in to (within half of it, two blocks an SM,
+    where any plan is); its grid has at least 132 blocks wherever some plan
+    has (SR x4 and x8: 216); up to 4 channels a block takes them all, and
+    wide tensors go in groups of 16 or 32 channels where that fills the
+    grid (128 channels at 512^2: 8x16 tiles of 16). A window that fits no
+    plan raises."""
+    if HR.window(4, factor, ksize) ** 2 * 4 > HR.SMEM_MAX:
+        with pytest.raises(ValueError, match="does not fit"):
+            HR.tile_plan(ksize, factor, n, c, h_out, w_out)
+        return
+    plan = HR.tile_plan(ksize, factor, n, c, h_out, w_out)
+    assert plan.tile_h in HR.TILES and plan.tile_w in HR.TILES and plan.tile_h % HR.ROWS == 0
+    assert plan.smem == HR.smem_bytes(plan.tile_h, plan.tile_w, plan.cg, factor, ksize)
+    win_w = HR.window(plan.tile_w, factor, ksize)
+    assert plan.smem == 4 * (HR.window(plan.tile_h, factor, ksize) * win_w * plan.cg
+                             + plan.tile_h * HR.inter_pitch(win_w, plan.cg) + ksize)
+    assert plan.smem <= HR.SMEM_MAX
+    assert plan.blocks == _blocks(n, c, h_out, w_out, plan.tile_h, plan.tile_w, plan.cg)
+    groups = (c,) if c <= 4 else (4, 8, 16, 32)
+    if HR.smem_bytes(4, 4, min(c, 4), factor, ksize) <= HR.SMEM_SHARE:
+        assert plan.smem <= HR.SMEM_SHARE and plan.cg in groups
+        assert plan.blocks >= min(HR.MIN_BLOCKS, _blocks(n, c, h_out, w_out, 4, 4, min(c, 4)))
+    else:  # one channel a block is allowed too
+        assert plan.cg in groups + (1,)
+        assert plan.blocks >= min(HR.MIN_BLOCKS, _blocks(n, c, h_out, w_out, 4, 4, 1))
+    if (ksize, factor, c) in ((16, 4, 3), (32, 8, 3)):
+        assert plan.blocks >= HR.MIN_BLOCKS
+    if c >= 16 and plan.blocks >= HR.MIN_BLOCKS:
+        assert plan.cg >= 16  # 64 bytes or more of each pixel
+    if c == 128:
+        assert (plan.tile_h, plan.tile_w, plan.cg) == (8, 16, 16)
+        assert plan.blocks >= HR.MIN_BLOCKS and plan.smem <= HR.SMEM_SHARE
+    pitch = HR.inter_pitch(win_w, plan.cg)
+    assert pitch >= win_w * plan.cg and (plan.cg >= 32 or pitch % 32 == plan.cg % 32)
+
+
+def blocked_downsample(x: torch.Tensor, taps: torch.Tensor, factor: int, pad: int,
+                       h_out: int, w_out: int) -> torch.Tensor:
+    """A pure-torch emulation of csrc/resample.cu's kernel, block by block,
+    on its flat shared memory: the block's tile and channel group from its
+    index (channel groups fastest), the window staged with clamped rows and
+    columns, the taps behind the H pass's rows, then for each row group the
+    H pass (kRows rows a thread, each window value read once) into rows of
+    the padded pitch, the W pass along them with stride f, and stores
+    masked at the ragged edges. NaN marks shared memory never written."""
+    n, h, w, c = x.shape
+    ksize, f, rows = taps.shape[0], factor, HR.ROWS
+    plan = HR.tile_plan(ksize, factor, n, c, h_out, w_out)
+    th, tw, cg = plan.tile_h, plan.tile_w, plan.cg
+    win_h, win_w = HR.window(th, f, ksize), HR.window(tw, f, ksize)
+    run, pitch = win_w * cg, HR.inter_pitch(win_w, cg)
+    inter0, taps0 = win_h * run, win_h * run + th * pitch
+    tiles_h, tiles_w, groups = -(-h_out // th), -(-w_out // tw), -(-c // cg)
+    assert n * tiles_h * tiles_w * groups == plan.blocks
+    span = (rows - 1) * f + ksize
+    out = torch.full((n, h_out, w_out, c), float("nan"))
+    for b in range(n):
+        for blk in range(tiles_h * tiles_w * groups):
+            grp, tile = blk % groups, blk // groups
+            o_r0, o_c0 = tile // tiles_w * th, tile % tiles_w * tw
+            c0 = grp * cg
+            cn = min(cg, c - c0)
+            smem = torch.full((plan.smem // 4,), float("nan"))
+            smem[taps0:taps0 + ksize] = taps
+            r_in = (o_r0 * f - pad + torch.arange(win_h)).clamp(0, h - 1)
+            c_in = (o_c0 * f - pad + torch.arange(win_w)).clamp(0, w - 1)
+            col, q = torch.meshgrid(torch.arange(win_w), torch.arange(cn), indexing="ij")
+            for row in range(win_h):
+                smem[row * run + col * cg + q] = x[b, r_in[row]][c_in][:, c0:c0 + cn]
+            k = smem[taps0:taps0 + ksize]
+            for g in range(th // rows):
+                acc = [torch.zeros(win_w, cn) for _ in range(rows)]
+                for m in range(span):
+                    v = smem[g * rows * f * run + col * cg + q + m * run]
+                    for r in range(rows):
+                        if 0 <= m - r * f < ksize:
+                            acc[r] = acc[r] + k[m - r * f] * v
+                for r in range(rows):
+                    smem[inter0 + (g * rows + r) * pitch + col * cg + q] = acc[r]
+            t, qt = torch.meshgrid(torch.arange(th), torch.arange(cn), indexing="ij")
+            live = o_r0 + torch.arange(th) < h_out
+            for gq in range(tw // rows):
+                acc = [torch.zeros(th, cn) for _ in range(rows)]
+                for m in range(span):
+                    v = smem[inter0 + t * pitch + gq * rows * f * cg + qt + m * cg]
+                    for r in range(rows):
+                        if 0 <= m - r * f < ksize:
+                            acc[r] = acc[r] + k[m - r * f] * v
+                for r in range(rows):
+                    q0 = o_c0 + gq * rows + r
+                    if q0 < w_out:
+                        out[b, o_r0:o_r0 + th, q0, c0:c0 + cn] = acc[r][live]
+    return out
+
+
+@pytest.mark.parametrize("shape,factor,ktype,phase,preserve",
+                         CASES + [((1, 34, 30, 128), 2, "lanczos2", 0.5, True)])
+def test_blocked_algorithm_matches_plain_and_pallas(jx, shape, factor, ktype, phase, preserve):
+    """The kernel's blocked algorithm (its tiles, channel groups, window
+    staging and two passes, emulated in torch) against downsample_plain and
+    the Pallas kernel in interpret mode, at atol 1e-6: f32 sums of the same
+    terms, taps in the same order as the plain version's banded products."""
+    jax, _, JP = jx
+    x = np.random.default_rng(sum(shape) + factor).random(shape).astype(np.float32)
+    spec = TR._spec(factor, ktype, phase, None, None, None)
+    pad, h_out, w_out = TR._geometry(shape, spec, preserve)
+    taps = torch.from_numpy(TR._profile(spec)).float()
+    got = blocked_downsample(torch.from_numpy(x), taps, factor, pad, h_out, w_out)
+    plain = TR.downsample_plain(torch.from_numpy(x), factor, ktype, phase, preserve)
+    fused = np.asarray(JP.downsample_fused(jax.numpy.asarray(x), factor, ktype, phase,
+                                           preserve, interpret=True))
+    assert tuple(got.shape) == tuple(plain.shape) == fused.shape
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got.numpy(), fused, atol=1e-6, rtol=0)
 
 
 @pytest.mark.cuda

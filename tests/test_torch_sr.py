@@ -151,8 +151,8 @@ def _assert_hist_close(jhist, thist, rtol):
         np.testing.assert_array_equal(thist["backtracked"], np.asarray(jhist["backtracked"]))
 
 
-@pytest.mark.parametrize("kwargs", [dict(factor=4), dict(factor=4, tv_weight=1e-4)],
-                         ids=["backtrack", "tv"])
+@pytest.mark.parametrize("kwargs", [dict(factor=4), dict(factor=4, tv_weight=1e-4),
+                                    dict(factor=8)], ids=["backtrack", "tv", "x8"])
 def test_sr_trajectory_matches_jax(kwargs):
     jhist, thist, _, _, jout, tout = _trajectories(kwargs)
     assert "backtracked" in thist
