@@ -31,7 +31,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      with the seam's carry-in off and on; and with 128-channel skips,
      nearest upsampling and every weight gradient from the kernels, under
      the masked MSE;
-  5. main paths, each through run_task for 30 steps: the flagship
+  5. main paths, each through run_task for 30 steps, graphed (Engine.run:
+     one eager step, then replays of the step's CUDA graph): the flagship
      denoising fit (tasks.denoise 'f16', 512^2) in bf16 and f32; the SR fit
      (tasks.super_resolve, HR 384x576) at x4 in bf16, f32 and bf16 with the
      carry-in, and at x8 in bf16; inpainting 'kate' (512^2, 128-channel
@@ -41,11 +42,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
      in bf16.
      Launch counters, set to 0 just before each fit and read just after
      it, must equal what the model implies: every step went through the
-     kernels;
-  6. no host sync: three more steps per dtype of the flagship, SR (x4, and
-     x8 in bf16) and inpainting 'kate' fits (weight-gradient kernels and
-     weight jitter on) under torch's sync debug mode, which raises on any
-     call that waits for the device.
+     kernels (a capture launches nothing; each replay counts the captured
+     step's launches);
+  6. no host sync: three more eager steps per dtype of the flagship, in
+     bf16 with a jitter schedule and with SGD, of the SR (x4, and x8 in
+     bf16) and inpainting 'kate' fits (weight-gradient kernels and weight
+     jitter on) under torch's sync debug mode, which raises on any call
+     that waits for the device;
+  7. [graph] the flagship in bf16 and f32 under deterministic cuDNN: 10
+     eager steps against Engine.run of 10 (one eager step, 9 replays) from
+     the same seeds, every loss, param and the EMA bit for bit; both it/s;
+  8. [queue] 8 flagship fits in bf16 through FitQueue, 30 steps each in
+     chunks of 10, each on its own stream: losses finite and falling,
+     params different across seeds, launch counts 8 x the fit's; the
+     aggregate it/s beside the graphed b1 fit's, and the peak memory;
+  9. [flash] flash/no-flash at 512^2 in bf16 (nearest up at the two top
+     seams, bilinear below): loss falling, psnr_track rising, launch
+     counts;
+ 10. [ckpt] the flagship in bf16 under deterministic cuDNN: 10 steps,
+     saved, restored into a fresh state, 10 more, against 20
+     uninterrupted, bit for bit.
 The last three lines are the card line, a JSON object of the kernels (each
 with its launches on a main path, error, times, and the bound of this
 run's shapes on an H100: bytes at 3.35 TB/s against operations at 989
@@ -59,10 +75,13 @@ Without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -89,6 +108,8 @@ LIBRARY_SEAMS = [(1, 256, 256, 16, 16), (1, 128, 128, 32, 16), (1, 64, 64, 64, 3
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 MAIN_STEPS = 30
+GRAPH_STEPS = 10  # eager against graphed
+QUEUE_JOBS = 8
 KERNELS = {
     "fwd": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
     "fwd_carry": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
@@ -615,21 +636,18 @@ def phase_small_reference(dev: torch.device) -> None:
             raise RuntimeError(f"small-input forward/gradients disagree with the CPU ({what})")
 
 
-def _kernel_modules() -> tuple:
-    from dip_tpu_torch.ops import hopper_resample, hopper_s2d, hopper_up_conv, hopper_wgrad
-
-    return hopper_up_conv, hopper_resample, hopper_s2d, hopper_wgrad
-
-
 def reset_counts() -> None:
     """Set every kernel wrapper's launch counter to 0."""
-    for mod in _kernel_modules():
-        mod.reset_launches()
+    from dip_tpu_torch.ops import launches
+
+    launches.reset()
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch counter, by kernel."""
-    return {k: v for mod in _kernel_modules() for k, v in mod.LAUNCHES.items()}
+    from dip_tpu_torch.ops import launches
+
+    return launches.counts()
 
 
 def wgrad_per_step(model) -> tuple[int, int]:
@@ -673,12 +691,13 @@ def path_launches(model, steps: int, downsample_per_step: int = 0) -> dict:
 
 
 def run_fit(spec, dev: torch.device, card: str, prefix: str, tag: str, want: dict,
-            rising: str | None) -> dict:
-    """One fit through run_task, with every launch counter set to 0 just
-    before it and read just after: its it/s (steps 11-30), loss, metrics
-    and launches. Raises unless the loss is finite and falls, `rising` (a
+            rising: str | None) -> tuple[dict, float]:
+    """One fit through run_task (on the card: one eager step, then replays
+    of its CUDA graph), with every launch counter set to 0 just before it
+    and read just after: its it/s (steps 11-30), loss, metrics and
+    launches. Raises unless the loss is finite and falls, `rising` (a
     metric) rises, the render is finite and of the image's shape, and the
-    launch counts equal `want`."""
+    launch counts equal `want`. Returns (launches, it/s)."""
     from dip_tpu_torch.fit.engine import tf32_flags
     from dip_tpu_torch.tasks.base import run_task
 
@@ -697,7 +716,8 @@ def run_fit(spec, dev: torch.device, card: str, prefix: str, tag: str, want: dic
     log(f"[{prefix}] {tag}: {ips:.2f} it/s, {1e3 / ips:.2f} ms/step (steps {i0 + 1}-{i1}) "
         f"| loss {loss[0]:.5f} -> {loss[-1]:.5f} | {metrics} | backtracked "
         f"{int(hist['backtracked'].sum()) if 'backtracked' in hist else '-'} | peak "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB | launches {delta} "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB | launches {delta} "
         f"| {tf32_flags()} | card {card}")
     if delta != want:
         raise RuntimeError(f"launch counts {delta} != {want}")
@@ -705,26 +725,36 @@ def run_fit(spec, dev: torch.device, card: str, prefix: str, tag: str, want: dic
         raise RuntimeError(f"loss not finite and falling: {loss}")
     if rising is not None and not hist[rising][-1] > hist[rising][0]:
         raise RuntimeError(f"{rising} not rising: {hist[rising]}")
-    want_shape = (1, *spec.spatial_size, spec.model.num_output_channels)
+    size = spec.spatial_size or tuple(spec.net_input.shape[1:3])
+    want_shape = (1, *size, spec.model.num_output_channels)
     if tuple(out.shape) != want_shape or not torch.isfinite(out).all():
         raise RuntimeError(f"bad output {tuple(out.shape)}, expected {want_shape}")
-    return delta
+    return delta, ips
 
 
-def phase_main_path(dev: torch.device, card: str) -> dict:
+def _flagship_spec(cd: str | None, steps: int = MAIN_STEPS, log_every: int = 10):
+    """The flagship denoising spec ('f16' at 512^2) in compute dtype `cd`."""
     from dip_tpu_torch.bench import synthetic_noisy
     from dip_tpu_torch.tasks import denoise
 
     clean, noisy = synthetic_noisy(512)
+    spec = denoise.task(noisy, "f16", gt=clean, num_iter=steps)
+    return dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, compute_dtype=cd, log_every=log_every))
+
+
+def phase_main_path(dev: torch.device, card: str) -> tuple[dict, float]:
+    """The flagship fit in bf16 and f32; returns the launches of both and
+    the bf16 fit's it/s."""
     total: dict = {}
     for cd in ("bfloat16", None):
-        spec = denoise.task(noisy, "f16", gt=clean, num_iter=MAIN_STEPS)
-        spec = dataclasses.replace(spec, cfg=dataclasses.replace(
-            spec.cfg, compute_dtype=cd, log_every=10))
-        delta = run_fit(spec, dev, card, "main", cd or "float32",
-                        path_launches(spec.model, MAIN_STEPS), None)
+        spec = _flagship_spec(cd)
+        delta, ips = run_fit(spec, dev, card, "main", cd or "float32",
+                             path_launches(spec.model, MAIN_STEPS), None)
         total = {k: total.get(k, 0) + v for k, v in delta.items()}
-    return total
+        if cd is not None:
+            bf16_ips = ips
+    return total, bf16_ips
 
 
 def synthetic_sr(factor: int = 4) -> tuple[np.ndarray, np.ndarray]:
@@ -766,8 +796,9 @@ def phase_sr_path(dev: torch.device, card: str) -> dict:
                               ("bfloat16", False, 8)):
         spec = _sr_spec(cd, carry, factor)
         tag = f"x{factor} {cd or 'float32'}" + (" carry" if carry else "")
-        delta = run_fit(spec, dev, card, "sr", tag,
-                        path_launches(spec.model, MAIN_STEPS, downsample_per_step=2), "psnr_lr")
+        delta, _ = run_fit(spec, dev, card, "sr", tag,
+                           path_launches(spec.model, MAIN_STEPS, downsample_per_step=2),
+                           "psnr_lr")
         total = {k: total.get(k, 0) + v for k, v in delta.items()}
     return total
 
@@ -813,8 +844,8 @@ def phase_masked_paths(dev: torch.device, card: str) -> dict:
         spec = _masked_spec(task, preset, cd, wgrad)
         tag = f"{task} {preset} {cd or 'float32'} conv_wgrad={wgrad}" + (
             " param_noise" if spec.cfg.param_noise else "")
-        delta = run_fit(spec, dev, card, "masked", tag, path_launches(spec.model, MAIN_STEPS),
-                        "psnr_track")
+        delta, _ = run_fit(spec, dev, card, "masked", tag,
+                           path_launches(spec.model, MAIN_STEPS), "psnr_track")
         first = first or delta
     return first
 
@@ -844,24 +875,203 @@ def _steps_without_sync(spec, dev: torch.device, what: str) -> None:
 
 
 def phase_steps_without_sync(dev: torch.device) -> None:
-    """The flagship step (jitter, EMA, backtracking), the SR step (the
-    downsample kernel in the loss and the metrics, its PyTorch adjoint, the
-    carry-in seams), and the inpainting 'kate' step with every weight
-    gradient from the kernels and weight jitter on."""
-    from dip_tpu_torch.bench import synthetic_noisy
-    from dip_tpu_torch.tasks import denoise
-
-    clean, noisy = synthetic_noisy(512)
+    """The flagship step (jitter, EMA, backtracking), and in bf16 with a
+    jitter schedule and with SGD; the SR step (the downsample kernel in the
+    loss and the metrics, its PyTorch adjoint, the carry-in seams); and the
+    inpainting 'kate' step with every weight gradient from the kernels and
+    weight jitter on."""
     for cd in ("bfloat16", None):
-        spec = denoise.task(noisy, "f16", gt=clean)
-        spec = dataclasses.replace(spec, cfg=dataclasses.replace(spec.cfg, compute_dtype=cd))
-        _steps_without_sync(spec, dev, f"flagship {cd or 'float32'}")
+        _steps_without_sync(_flagship_spec(cd), dev, f"flagship {cd or 'float32'}")
+    for what, over in (("reg_noise_schedule ((2, 0.1), (3, 0.05))",
+                        dict(reg_noise_schedule=((2, 0.1), (3, 0.05)))),
+                       ("optimizer sgd", dict(optimizer="sgd"))):
+        spec = _flagship_spec("bfloat16")
+        spec = dataclasses.replace(spec, cfg=dataclasses.replace(spec.cfg, **over))
+        _steps_without_sync(spec, dev, f"flagship bfloat16 {what}")
     for cd, carry, factor in (("bfloat16", True, 4), (None, False, 4), ("bfloat16", False, 8)):
         _steps_without_sync(_sr_spec(cd, carry, factor), dev,
                             f"sr x{factor} {cd or 'float32'}{' carry' if carry else ''}")
     for cd in ("bfloat16", None):
         _steps_without_sync(_masked_spec("inpaint", "kate", cd, "all", param_noise=True), dev,
                             f"inpaint kate {cd or 'float32'} conv_wgrad=all param_noise")
+
+
+def _fit_parts(spec, dev: torch.device, seed: int = 0) -> tuple:
+    """(engine, state, aux) of a fit of `spec` on a copy of its model,
+    seeded as run_task seeds it."""
+    from dip_tpu_torch.tasks.base import start_task
+
+    return start_task(dataclasses.replace(spec, model=copy.deepcopy(spec.model)), seed,
+                      device=dev)
+
+
+def _differing(a, b) -> list[str]:
+    """The names of the params and the EMA that differ in any bit between
+    fit states a and b, each with its max abs difference."""
+    pairs = [(k, a.params[k], b.params[k]) for k in a.params] + [("ema", a.ema_out, b.ema_out)]
+    return [f"{k} ({(x - y).abs().max().item():.3e})" for k, x, y in pairs
+            if not torch.equal(x, y)]
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms on and its autotuner off."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _steps_per_s(fn, steps: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0)
+
+
+def phase_graph(dev: torch.device, card: str) -> None:
+    """[graph] The flagship in bf16 and f32 under deterministic cuDNN:
+    GRAPH_STEPS eager Engine.step calls, and Engine.run of GRAPH_STEPS
+    steps (one eager step, then replays of the captured one) from the same
+    seeds, equal bit for bit in every loss, param and the EMA; then
+    GRAPH_STEPS more steps each way, timed."""
+    with _deterministic_cudnn():
+        for cd in ("bfloat16", None):
+            spec = _flagship_spec(cd, GRAPH_STEPS, GRAPH_STEPS)
+            eng_e, st_e, aux_e = _fit_parts(spec, dev)
+            eager = torch.stack([eng_e.step(st_e, aux_e)[1]["loss"]
+                                 for _ in range(GRAPH_STEPS)]).cpu()
+            eng_g, st_g, aux_g = _fit_parts(spec, dev)
+            _, hist = eng_g.run(st_g, aux_g)
+            torch.cuda.synchronize()
+            losses_equal = torch.equal(eager, torch.from_numpy(hist["loss"]))
+            differ = _differing(st_e, st_g)
+
+            def eager_steps():
+                for _ in range(GRAPH_STEPS):
+                    eng_e.step(st_e, aux_e)
+
+            def replays():
+                eng_g.run_chunk(st_g, aux_g, GRAPH_STEPS)
+                eng_g.wait()
+
+            ips_e, ips_g = _steps_per_s(eager_steps, GRAPH_STEPS), _steps_per_s(replays, GRAPH_STEPS)
+            log(f"[graph] flagship {cd or 'float32'}, cudnn deterministic: {GRAPH_STEPS} eager "
+                f"steps against run() ({GRAPH_STEPS - 1} replays): losses "
+                f"{'bitwise equal' if losses_equal else 'DIFFER'}, params and EMA "
+                f"{'bitwise equal' if not differ else 'DIFFER in ' + ', '.join(differ[:6])} "
+                f"| loss {eager[0]:.5f} -> {eager[-1]:.5f} | eager {ips_e:.2f} it/s, graphed "
+                f"{ips_g:.2f} it/s ({GRAPH_STEPS} more steps each) | card {card}")
+            if not losses_equal or differ:
+                raise RuntimeError("the graphed steps differ from the eager steps")
+
+
+def phase_queue(dev: torch.device, card: str, b1_ips: float) -> None:
+    """[queue] QUEUE_JOBS flagship fits in bf16 through FitQueue, MAIN_STEPS
+    steps each in chunks of 10, seeds 0..QUEUE_JOBS-1 (the graphs captured
+    one after another, then the chunks round-robin): every loss finite
+    and falling, every render finite, the jobs' params pairwise different,
+    and the launch counts QUEUE_JOBS x path_launches."""
+    from dip_tpu_torch.parallel import FitQueue
+
+    spec = _flagship_spec("bfloat16")
+    q = FitQueue()
+    for i in range(QUEUE_JOBS):
+        q.add(spec, i, name=f"img{i}", device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = q.run()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    delta = launch_counts()
+    want = {k: QUEUE_JOBS * v for k, v in path_launches(spec.model, MAIN_STEPS).items()}
+    first = next(iter(spec.model.state_dict()))
+    weights = [r[1].params[first] for r in res.values()]
+    same = [(i, j) for i in range(len(weights)) for j in range(i) if torch.equal(weights[i],
+                                                                                  weights[j])]
+    losses = {name: r[2]["loss"] for name, r in res.items()}
+    log(f"[queue] {QUEUE_JOBS} flagship fits, bfloat16, {MAIN_STEPS} steps each, chunks of 10: "
+        f"aggregate {QUEUE_JOBS * MAIN_STEPS / wall:.2f} it/s (wall {wall:.2f} s, each job's "
+        f"eager first step and capture included) against graphed b1 {b1_ips:.2f} it/s | losses "
+        + ", ".join(f"{v[0]:.4f}->{v[-1]:.4f}" for v in losses.values())
+        + f" | jobs with equal {first}: {same or 'none'} | peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB | launches {delta} | card {card}")
+    if delta != want:
+        raise RuntimeError(f"launch counts {delta} != {want}")
+    for name, (out, _, hist) in res.items():
+        loss = hist["loss"]
+        if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
+            raise RuntimeError(f"{name}: loss not finite and falling: {loss}")
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"{name}: render not finite")
+    if same:
+        raise RuntimeError(f"jobs from different seeds ended with equal params: {same}")
+
+
+def synthetic_flash(size: int) -> tuple[np.ndarray, np.ndarray]:
+    """(flash, no-flash) (1, size, size, 3), made with numpy: a textured
+    scene under a cold, bright, flat light, and the same scene under a
+    warm, dim light falling off to one side, with sensor noise."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    albedo = np.stack([0.5 + 0.3 * np.sin(xx * 23) * np.cos(yy * 17),
+                       0.5 + 0.25 * np.cos((xx + yy) * 31),
+                       0.45 + 0.2 * np.sin(xx * 57) * np.sin(yy * 41)], -1)
+    flash = np.clip(albedo * np.array([0.95, 0.95, 1.0]), 0, 1)
+    light = (0.35 + 0.45 * (1 - xx))[..., None] * np.array([1.0, 0.8, 0.55])
+    noise = np.random.default_rng(5).normal(scale=0.03, size=albedo.shape)
+    noflash = np.clip(albedo * light + noise, 0, 1)
+    return flash[None].astype(np.float32), noflash[None].astype(np.float32)
+
+
+def phase_flash(dev: torch.device, card: str) -> None:
+    """[flash] Flash/no-flash at 512^2 in bf16 through run_task, MAIN_STEPS
+    steps: nearest up at the two top seams and bilinear below, all fused;
+    the loss falls, psnr_track rises, the launch counts hold."""
+    from dip_tpu_torch.tasks import flash_no_flash
+
+    flash, noflash = synthetic_flash(FIT_SIZE)
+    spec = flash_no_flash.task(flash, noflash, num_iter=MAIN_STEPS)
+    spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, compute_dtype="bfloat16", log_every=10))
+    run_fit(spec, dev, card, "flash", f"flash/no-flash {FIT_SIZE}^2 bfloat16 up modes "
+            f"{spec.model.up_modes}", path_launches(spec.model, MAIN_STEPS), "psnr_track")
+
+
+def phase_checkpoint(dev: torch.device, card: str) -> None:
+    """[ckpt] The flagship in bf16 under deterministic cuDNN: 10 steps,
+    saved, restored into a fresh state and fit for 10 more, against 20
+    steps uninterrupted: the losses, params and EMA bit for bit."""
+    from dip_tpu_torch.fit.checkpoint import restore_fit_state, save_fit_state
+
+    path = Path("build") / "chip_smoke_ckpt.pt"
+    path.parent.mkdir(exist_ok=True)
+    with _deterministic_cudnn():
+        eng, whole, aux = _fit_parts(_flagship_spec("bfloat16", 20, 10), dev)
+        _, h_whole = eng.run(whole, aux)
+        half = _flagship_spec("bfloat16", 10, 10)
+        eng1, first, aux1 = _fit_parts(half, dev)
+        _, h1 = eng1.run(first, aux1)
+        save_fit_state(str(path), first)
+        eng2, resumed, aux2 = _fit_parts(half, dev)
+        restore_fit_state(str(path), resumed)
+        _, h2 = eng2.run(resumed, aux2)
+        torch.cuda.synchronize()
+    path.unlink()
+    losses_equal = np.array_equal(np.concatenate([h1["loss"], h2["loss"]]), h_whole["loss"])
+    differ = _differing(whole, resumed)
+    log(f"[ckpt] flagship bfloat16, cudnn deterministic: 10 steps, save, restore into a fresh "
+        f"state, 10 more, against 20 uninterrupted: losses "
+        f"{'bitwise equal' if losses_equal else 'DIFFER'}, params and EMA "
+        f"{'bitwise equal' if not differ else 'DIFFER in ' + ', '.join(differ[:6])}, "
+        f"step {resumed.step} | card {card}")
+    if not losses_equal or differ or resumed.step != 20:
+        raise RuntimeError("the resumed fit differs from the uninterrupted one")
 
 
 def _entry(name: str, src_rep: tuple[str, str], launches: int, stats: dict) -> dict:
@@ -886,10 +1096,14 @@ def main() -> int:
     s2d = phase_s2d_parity(dev)
     wgrad = phase_wgrad_parity(dev)
     phase_small_reference(dev)
-    launches = phase_main_path(dev, card)
+    launches, b1_ips = phase_main_path(dev, card)
     sr_launches = phase_sr_path(dev, card)
     masked_launches = phase_masked_paths(dev, card)
     phase_steps_without_sync(dev)
+    phase_graph(dev, card)
+    phase_queue(dev, card, b1_ips)
+    phase_flash(dev, card)
+    phase_checkpoint(dev, card)
     # each kernel's launches come from the main path that runs it: the
     # flagship fit for the seam's fwd, dgrad and wgrad and the s2d pack,
     # the SR fits for the carry-in forward and the downsample, the

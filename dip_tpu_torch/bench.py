@@ -1,20 +1,28 @@
 """Benchmark: DIP fit iterations/second on the flagship denoising workload,
 on one CUDA device.
 
-Counterpart of dip_tpu/bench.py's b1 rows: skip 128x5 generator, 512^2
-synthetic noisy image, input depth 32, jitter 1/30, EMA 0.99, MSE and
-on-device PSNR, no backtracking, timed over `iters` steps after one warm
-chunk (best of 3). Rows carry the same JSON keys as the JAX bench plus
-`device`, `power_limit` and `tf32`. There is no CPU fallback: without a
-card it raises.
+Counterpart of dip_tpu/bench.py: skip 128x5 generator, 512^2 synthetic
+noisy image, input depth 32, jitter 1/30, EMA 0.99, MSE and on-device PSNR,
+no backtracking. The b1 rows time the graphed chunk (`iters` replays of
+the step's CUDA graph, Engine.run_chunk: the JAX bench's compiled chunk)
+after a warm chunk, best of 3, each beside its eager figure (`iters`
+Engine.step calls), timed in turns with it. The b8 row runs 8 fits in bf16
+through FitQueue, `log_every = iters`, from fresh jobs after a warm run,
+each job's first (eager) step and capture inside the timer and its init
+outside; its rate is iters x 8 / wall, and it checks that the 8 fits,
+seeded apart, end with different params. Rows carry the same JSON keys as
+the JAX bench plus `eager`, `device`, `power_limit` and `tf32`. There is
+no CPU fallback: without a card it raises.
 
     python -m dip_tpu_torch.bench [--size 512] [--iters 100]
-    python -m dip_tpu_torch.bench --profile 5   # kernel table per dtype
+    python -m dip_tpu_torch.bench --profile 5   # kernel tables per dtype
     python -m dip_tpu_torch.bench --profile 5 --fit kate [--conv-wgrad 3x3]
 
-`--fit kate` profiles inpainting 'kate' (128-channel skips, nearest up,
-masked MSE) on a synthetic image and mask of the same size in place of the
-flagship; `--conv-wgrad` routes its conv weight gradients through the
+`--profile` profiles a graphed chunk and then as many eager steps, and
+prints each window's wall and kernel ms a step and the device's idle
+share. `--fit kate` profiles inpainting 'kate' (128-channel skips, nearest
+up, masked MSE) on a synthetic image and mask of the same size in place of
+the flagship; `--conv-wgrad` routes its conv weight gradients through the
 port's kernels (the model's `conv_wgrad`, 'off' by default). The bf16 3x3
 and 1x1 gradients (K5, K6) share `up_conv_wgrad_mma_kernel` and its sum
 passes with the seam's (K3): the profile of the same fit with 'off' gives
@@ -39,6 +47,12 @@ PORT_KERNELS = ("up_conv_fwd_mma_kernel", "up_conv_dgrad_mma_kernel", "up_conv_d
                 "up_conv_wgrad_sum_rows_kernel", "s2d_pack_kernel",
                 "wgrad_f32_kernel", "wgrad_sum_kernel",
                 "downsample_kernel")
+# the profile's kernel kinds, by substrings of the kernel's name, first match
+# wins (the port's kernels are PORT_KERNELS)
+KERNEL_KINDS = (("cuDNN/cuBLAS", ("cudnn", "xmma", "cutlass", "gemm", "convolve", "Nhwc", "Nchw")),
+                ("optimizer", ("multi_tensor_apply",)),
+                ("elementwise", ("elementwise",)),
+                ("reductions", ("reduce_kernel",)))
 _BASELINE = Path(__file__).resolve().parents[1] / "results" / "torch_baseline.json"
 
 
@@ -86,141 +100,241 @@ def synthetic_inpaint(size: int) -> tuple[np.ndarray, np.ndarray]:
     return img[None].astype(np.float32), mask[None]
 
 
-def _kate(size: int, compute_dtype: str | None, device: str, conv_wgrad: str = "off"):
-    """(engine, state, aux) of inpainting 'kate' on a CUDA device, its conv
-    weight gradients routed as `conv_wgrad` says."""
-    import dataclasses
-
-    from dip_tpu_torch.fit.engine import Engine, resolve_device
-    from dip_tpu_torch.tasks import inpaint
-    from dip_tpu_torch.tasks.base import make_input, to_device
+def _cuda(device: str) -> torch.device:
+    from dip_tpu_torch.fit.engine import resolve_device
 
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("the bench measures a CUDA device")
+    return dev
+
+
+def _kate(size: int, compute_dtype: str | None, device: str, conv_wgrad: str = "off",
+          steps: int = 100):
+    """(engine, state, aux) of inpainting 'kate' on a CUDA device, its conv
+    weight gradients routed as `conv_wgrad` says, in chunks of `steps`."""
+    import dataclasses
+
+    from dip_tpu_torch.tasks import inpaint
+    from dip_tpu_torch.tasks.base import start_task
+
     img, mask = synthetic_inpaint(size)
     spec = inpaint.task(img * mask, mask, "kate", gt=img)
     spec.model.conv_wgrad = conv_wgrad
-    cfg = dataclasses.replace(spec.cfg, compute_dtype=compute_dtype)
-    eng = Engine(spec.model, spec.loss_fn, cfg, spec.metrics_fn, device=dev)
-    state = eng.init_state(0, make_input(spec, torch.Generator().manual_seed(0), dev),
-                           spec.extra_params)
-    return eng, state, to_device(spec.aux, dev)
+    spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, compute_dtype=compute_dtype, log_every=steps))
+    return start_task(spec, 0, device=_cuda(device))
 
 
-def _flagship(size: int, iters: int, compute_dtype: str | None, device: str):
-    """(engine, state, target) of the flagship fit on a CUDA device."""
-    from dip_tpu_torch.fit.engine import Engine, FitConfig, default_metrics, resolve_device
+def flagship_spec(size: int, iters: int, compute_dtype: str | None, target: torch.Tensor):
+    """The flagship fit as a TaskSpec of `iters` steps in one chunk, fitting
+    `target` (on the fit's device)."""
+    from dip_tpu_torch.fit.engine import FitConfig, default_metrics
     from dip_tpu_torch.models import Skip
     from dip_tpu_torch.ops.losses import mse
-    from dip_tpu_torch.utils.noise import get_noise
+    from dip_tpu_torch.tasks.base import TaskSpec
 
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise ValueError("the bench measures a CUDA device")
     model = Skip(num_input_channels=32, num_channels_down=[128] * 5,
                  num_channels_up=[128] * 5, num_channels_skip=[4] * 5,
                  upsample_mode="bilinear", pad="reflection")
     cfg = FitConfig(num_iter=iters, lr=0.01, reg_noise_std=1.0 / 30,
                     exp_weight=0.99, log_every=iters, compute_dtype=compute_dtype)
+    return TaskSpec(name="flagship", model=model, cfg=cfg,
+                    loss_fn=lambda p, out, aux: mse(out, aux), aux=target,
+                    metrics_fn=default_metrics(target), input_depth=32,
+                    spatial_size=(size, size))
+
+
+def _flagship(size: int, iters: int, compute_dtype: str | None, device: str):
+    """(engine, state, target) of the flagship fit on a CUDA device: weights
+    from seed 0, z from seed 1."""
+    from dip_tpu_torch.fit.engine import Engine
+    from dip_tpu_torch.utils.noise import get_noise
+
+    dev = _cuda(device)
     target = torch.from_numpy(synthetic_noisy(size)[1]).to(dev)
-    eng = Engine(model, lambda p, out, aux: mse(out, aux), cfg,
-                 default_metrics(target), device=dev)
+    spec = flagship_spec(size, iters, compute_dtype, target)
+    eng = Engine(spec.model, spec.loss_fn, spec.cfg, spec.metrics_fn, device=dev)
     z = get_noise(torch.Generator().manual_seed(1), 32, "noise", (size, size),
                   device=eng.device)
     return eng, eng.init_state(0, z), target
 
 
-def run_bench(size: int = 512, iters: int = 100, compute_dtype: str | None = None,
-              device: str = "cuda", print_json: bool = True) -> dict:
-    eng, state, target = _flagship(size, iters, compute_dtype, device)
-
-    def chunk():
-        for _ in range(iters):
-            eng.step(state, target)
-
-    chunk()  # warm: cuDNN plans, the kernel build, the allocator
-    torch.cuda.synchronize()
-    dt = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        chunk()
-        torch.cuda.synchronize()
-        dt = min(dt, time.perf_counter() - t0)
-    ips = iters / dt
+def _row(metric: str, ips: float, dev: torch.device, tf32: dict) -> dict:
     baseline = measured_torch_baseline()
-    tag = "" if compute_dtype is None else f"_{compute_dtype}"
-    result = {
-        "metric": f"dip_iters_per_sec_{size}x{size}_b1{tag}",
+    return {
+        "metric": metric,
         "value": round(ips, 2),
         "unit": "iters/s",
         "vs_baseline": round(ips / baseline, 1),
         "baseline_note": f"reference torch loop on a CPU: {baseline} it/s "
                          f"(results/torch_baseline.json)",
         "vs_ref_gpu_estimate": round(ips / REFERENCE_GPU_ESTIMATE_ITERS_PER_SEC, 2),
-        "device": torch.cuda.get_device_name(eng.device),
+        "device": torch.cuda.get_device_name(dev),
         "power_limit": card_line().split(",")[-1].strip(),
-        "tf32": eng.tf32,
+        "tf32": tf32,
     }
+
+
+def run_bench(size: int = 512, iters: int = 100, compute_dtype: str | None = None,
+              device: str = "cuda", print_json: bool = True) -> dict:
+    """The b1 row: the graphed chunk's it/s (`value`) and the eager steps'
+    (`eager`), best of 3, timed in turns on one fit."""
+    eng, state, target = _flagship(size, iters, compute_dtype, device)
+
+    def graphed():
+        eng.run_chunk(state, target, iters)
+        eng.wait()
+
+    def eager():
+        for _ in range(iters):
+            eng.step(state, target)
+
+    # warm: the capture (after one eager step), cuDNN plans, the kernel build
+    graphed()
+    eager()
+    best = {graphed: float("inf"), eager: float("inf")}
+    for turn in ((graphed, eager), (eager, graphed), (graphed, eager)):
+        for fn in turn:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best[fn] = min(best[fn], time.perf_counter() - t0)
+    tag = "" if compute_dtype is None else f"_{compute_dtype}"
+    result = _row(f"dip_iters_per_sec_{size}x{size}_b1{tag}", iters / best[graphed],
+                  eng.device, eng.tf32)
+    result["eager"] = round(iters / best[eager], 2)
     if print_json:
         print(json.dumps(result), flush=True)
     return result
 
 
-def run_full(size: int = 512, iters: int = 100, print_json: bool = True) -> dict:
-    """b1 bf16 (the headline value) with the b1 f32 row as `b1_f32`."""
+def run_queue(size: int = 512, iters: int = 100, batch: int = 8,
+              compute_dtype: str | None = "bfloat16", device: str = "cuda",
+              print_json: bool = True) -> dict:
+    """The b{batch} row: `batch` flagship fits through FitQueue, one chunk
+    of `iters` each, fresh jobs (seeds batch..2*batch-1) after a warm run;
+    raises unless their final params differ pairwise."""
+    from dip_tpu_torch.fit.engine import tf32_flags
+    from dip_tpu_torch.parallel import FitQueue
+
+    dev = _cuda(device)
+    spec = flagship_spec(size, iters, compute_dtype,
+                         torch.from_numpy(synthetic_noisy(size)[1]).to(dev))
+
+    def queue(seed0: int) -> FitQueue:
+        q = FitQueue()
+        for i in range(batch):
+            q.add(spec, seed0 + i, name=f"img{i}", device=dev)
+        return q
+
+    queue(0).run()  # warm: cuDNN plans, the kernel build
+    q = queue(batch)  # fresh jobs, init outside the timer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = q.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    first = next(iter(spec.model.state_dict()))
+    weights = [r[1].params[first] for r in res.values()]
+    if any(torch.equal(weights[i], weights[j]) for i in range(batch) for j in range(i)):
+        raise RuntimeError("fits seeded apart ended with equal params")
+    tag = "" if compute_dtype is None else f"_{compute_dtype}"
+    result = _row(f"dip_iters_per_sec_{size}x{size}_b{batch}{tag}", iters * batch / dt,
+                  dev, tf32_flags())
+    if print_json:
+        print(json.dumps(result), flush=True)
+    return result
+
+
+def run_full(size: int = 512, iters: int = 100, batch: int = 8,
+             print_json: bool = True) -> dict:
+    """b1 bf16 (the headline value, its eager figure as `eager`) with
+    `b1_f32`, `b1_f32_eager` and `b{batch}_queue_aggregate`, each row
+    printed as it completes and then combined in one line."""
     r_bf16 = run_bench(size, iters, "bfloat16", print_json=print_json)
     r_f32 = run_bench(size, iters, None, print_json=print_json)
-    result = dict(r_bf16, b1_f32=r_f32["value"])
+    r_queue = run_queue(size, iters, batch, "bfloat16", print_json=print_json)
+    result = dict(r_bf16, b1_f32=r_f32["value"], b1_f32_eager=r_f32["eager"],
+                  b_queue=batch)
+    result[f"b{batch}_queue_aggregate"] = r_queue["value"]
     if print_json:
         print(json.dumps(result), flush=True)
     return result
 
 
-def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
-            device: str = "cuda", rows: int = 30, fit: str = "flagship",
-            conv_wgrad: str = "off") -> dict:
-    """torch.profiler over `steps` warm steps of the flagship (or of
-    inpainting 'kate', with `conv_wgrad`): prints the kernels by device
-    time, then each of the port's own kernels with its ms and launches a
-    step, and returns the window's wall time, summed kernel time, the
-    device's idle share (1 - kernel time / wall time) and the port's
-    kernels."""
+def _profile_window(prof_steps, steps: int, what: str, eng) -> dict:
+    """torch.profiler over prof_steps(): the kernels by device time, each
+    of the port's own kernels with its ms and launches a step, and the
+    kernel time a step by kind (KERNEL_KINDS); returns the window's wall
+    time, summed kernel time, the device's idle share (1 - kernel time /
+    wall time), the port's kernels and the kinds."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    if fit == "kate":
-        eng, state, target = _kate(size, compute_dtype, device, conv_wgrad)
-    else:
-        eng, state, target = _flagship(size, steps, compute_dtype, device)
-    for _ in range(10):
-        eng.step(state, target)
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step(state, target)
+        prof_steps()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # device rows, less the user annotations that also land on the device's
+    # timeline (Optimizer.step#Adam.step spans the optimizer's kernels)
     avgs = prof.key_averages()
-    kernel_us = sum(e.self_device_time_total for e in avgs
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    tag = compute_dtype or "float32"
-    what = f"{fit} {tag}" + (f" conv_wgrad={conv_wgrad}" if fit == "kate" else "")
+    device = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    kernel_us = sum(e.self_device_time_total for e in device)
     print(f"# profile {what}: {steps} steps, wall {wall * 1e3 / steps:.2f} ms/step, "
           f"kernels {kernel_us / 1e3 / steps:.2f} ms/step, device idle "
           f"{1 - kernel_us / 1e6 / wall:.3f} | {card_line()} | {eng.tf32}", flush=True)
-    print(avgs.table(sort_by="self_device_time_total", row_limit=rows), flush=True)
+    print(avgs.table(sort_by="self_device_time_total", row_limit=30), flush=True)
     ours: dict[str, list[float]] = {}  # name: [ms, launches] a step, over template instances
-    for e in avgs:
+    kinds = dict.fromkeys(["port", *(k for k, _ in KERNEL_KINDS), "other"], 0.0)  # ms a step
+    for e in device:
+        ms_step = e.self_device_time_total / 1e3 / steps
         name = next((k for k in PORT_KERNELS if f"::{k}<" in e.key or f"::{k}(" in e.key), None)
-        if name is not None and e.device_type == torch.autograd.DeviceType.CUDA:
+        if name is not None:
             ms, n = ours.setdefault(name, [0.0, 0.0])
-            ours[name] = [ms + e.self_device_time_total / 1e3 / steps, n + e.count / steps]
+            ours[name] = [ms + ms_step, n + e.count / steps]
+            kinds["port"] += ms_step
+        else:
+            kind = next((k for k, subs in KERNEL_KINDS if any(t in e.key for t in subs)), "other")
+            kinds[kind] += ms_step
     print(f"# port kernels {what} (ms, launches a step): " + ", ".join(
         f"{k} {ms:.4f} ({n:g})" for k, (ms, n) in ours.items()), flush=True)
-    return {"fit": fit, "dtype": tag, "conv_wgrad": conv_wgrad,
-            "wall_ms_per_step": wall * 1e3 / steps, "kernel_ms_per_step": kernel_us / 1e3 / steps,
-            "device_idle": 1 - kernel_us / 1e6 / wall, "port_kernels": ours}
+    print(f"# kernel kinds {what} (ms a step): " + ", ".join(
+        f"{k} {ms:.2f}" for k, ms in kinds.items()), flush=True)
+    return {"wall_ms_per_step": wall * 1e3 / steps, "kernel_ms_per_step": kernel_us / 1e3 / steps,
+            "device_idle": 1 - kernel_us / 1e6 / wall, "port_kernels": ours, "kinds": kinds}
+
+
+def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
+            device: str = "cuda", fit: str = "flagship", conv_wgrad: str = "off") -> dict:
+    """The flagship (or inpainting 'kate', with `conv_wgrad`) under
+    torch.profiler, after a warm chunk and 10 warm eager steps: a graphed
+    chunk of `steps` replays, then `steps` eager steps."""
+    if fit == "kate":
+        eng, state, target = _kate(size, compute_dtype, device, conv_wgrad, steps)
+    else:
+        eng, state, target = _flagship(size, steps, compute_dtype, device)
+
+    def graphed():
+        eng.run_chunk(state, target, steps)
+        eng.wait()
+
+    def eager():
+        for _ in range(steps):
+            eng.step(state, target)
+
+    graphed()  # the capture
+    for _ in range(10):
+        eng.step(state, target)
+    tag = compute_dtype or "float32"
+    what = f"{fit} {tag}" + (f" conv_wgrad={conv_wgrad}" if fit == "kate" else "")
+    out = {"fit": fit, "dtype": tag, "conv_wgrad": conv_wgrad}
+    for mode, fn in (("graphed", graphed), ("eager", eager)):
+        out[mode] = _profile_window(fn, steps, f"{what} {mode}", eng)
+    return out
 
 
 def main() -> None:

@@ -192,7 +192,11 @@ def up2_moments(x: torch.Tensor, up_mode: str) -> tuple[torch.Tensor, torch.Tens
     (N, H, W), computed on the LR tensor with f32 sums and returned in x's
     dtype. bilinear: the mean is mean(x); the second moment is the banded
     quadratic form with G = U^T U, G[i,i] = 1.25 (1.625 at the two edges),
-    G[i,i+1] = 0.375."""
+    G[i,i+1] = 0.375. Its products are taken in f32, as _moments in
+    models/blocks.py takes them, and the variance is clamped at 0: with
+    products rounded to bf16 (the JAX package's form), a channel whose
+    variance is a thousandth of its squared mean came out negative and
+    BN's rsqrt made the fit NaN (flash/no-flash at lr 0.1 in bf16)."""
     f32 = torch.float32
     if up_mode == "nearest":
         xf = x.to(f32)
@@ -203,17 +207,15 @@ def up2_moments(x: torch.Tensor, up_mode: str) -> tuple[torch.Tensor, torch.Tens
     n, h, w, c = x.shape
     if h < 2 or w < 2:
         raise ValueError(f"up2_moments needs h, w >= 2, got {h}x{w}")
-    mean = x.to(f32).mean((0, 1, 2))
+    xf = x.to(f32)
+    mean = xf.mean((0, 1, 2))
     g0h = _const(_gram_diag, h, f32, x.device)
     g0w = _const(_gram_diag, w, f32, x.device)
-    # products in x's dtype (as a variance of the HR tensor would square
-    # in-dtype), sums in f32
-    s0 = torch.einsum("nhwc,h,w->c", (x * x).to(f32), g0h, g0w)
-    sh = 0.75 * torch.einsum("nhwc,w->c", (x[:, :-1] * x[:, 1:]).to(f32), g0w)
-    sw = 0.75 * torch.einsum("nhwc,h->c", (x[:, :, :-1] * x[:, :, 1:]).to(f32), g0h)
-    sd = 0.28125 * (
-        (x[:, :-1, :-1] * x[:, 1:, 1:]).to(f32).sum((0, 1, 2))
-        + (x[:, 1:, :-1] * x[:, :-1, 1:]).to(f32).sum((0, 1, 2)))
+    s0 = torch.einsum("nhwc,h,w->c", xf * xf, g0h, g0w)
+    sh = 0.75 * torch.einsum("nhwc,w->c", xf[:, :-1] * xf[:, 1:], g0w)
+    sw = 0.75 * torch.einsum("nhwc,h->c", xf[:, :, :-1] * xf[:, :, 1:], g0h)
+    sd = 0.28125 * ((xf[:, :-1, :-1] * xf[:, 1:, 1:]).sum((0, 1, 2))
+                    + (xf[:, 1:, :-1] * xf[:, :-1, 1:]).sum((0, 1, 2)))
     second = (s0 + sh + sw + sd) / (n * 4 * h * w)
-    var = second - mean * mean
+    var = torch.clamp(second - mean * mean, min=0.0)
     return mean.to(x.dtype), var.to(x.dtype)

@@ -169,7 +169,9 @@ def test_port_imports_no_jax():
     code = ("import sys, dip_tpu_torch, dip_tpu_torch.interop, dip_tpu_torch.bench, "
             "dip_tpu_torch.tasks.denoise, dip_tpu_torch.ops.hopper_up_conv, "
             "dip_tpu_torch.tasks.super_resolve, dip_tpu_torch.eval.sr_eval, "
-            "dip_tpu_torch.ops.hopper_resample, dip_tpu_torch.models.downsampler; "
+            "dip_tpu_torch.ops.hopper_resample, dip_tpu_torch.models.downsampler, "
+            "dip_tpu_torch.fit.checkpoint, dip_tpu_torch.parallel, dip_tpu_torch.tasks, "
+            "dip_tpu_torch.tasks.flash_no_flash, dip_tpu_torch.ops.launches; "
             "assert 'jax' not in sys.modules and 'flax' not in sys.modules, "
             "sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
