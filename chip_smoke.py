@@ -30,7 +30,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      at full resolution, and under the SR loss (x4 downsample, MSE at LR)
      with the seam's carry-in off and on; and with 128-channel skips,
      nearest upsampling and every weight gradient from the kernels, under
-     the masked MSE;
+     the masked MSE; then the zoo's nets the same way under an MSE, every
+     weight gradient from the kernels: UNet (deconv and bilinear up),
+     ResNet, TextureNet (no noise: the draws differ by device), DCGAN
+     (transposed convs, and upsample + conv);
   5. main paths, each through run_task for 30 steps, graphed (Engine.run:
      one eager step, then replays of the step's CUDA graph): the flagship
      denoising fit (tasks.denoise 'f16', 512^2) in bf16 and f32; the SR fit
@@ -39,7 +42,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      skips) with the weight-gradient kernels on, in bf16 and f32, and off;
      inpainting 'library' (6 scales, weight jitter), restoration 'barbara'
      (50 % of the pixels) and restoration 'kate' (avg-pool downsampling),
-     in bf16.
+     in bf16; [zoo] inpainting 'library' with its UNet (8-128 channels,
+     more_layers 1, deconv up, instance norm) and its ResNet (8 blocks of
+     32 channels) at 512^2, bf16 and f32, every weight gradient from the
+     kernels.
      Launch counters, set to 0 just before each fit and read just after
      it, must equal what the model implies: every step went through the
      kernels (a capture launches nothing; each replay counts the captured
@@ -48,7 +54,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      bf16 with a jitter schedule and with SGD, of the SR (x4, and x8 in
      bf16) and inpainting 'kate' fits (weight-gradient kernels and weight
      jitter on) under torch's sync debug mode, which raises on any call
-     that waits for the device;
+     that waits for the device (Adam and SGD only: an L-BFGS step reads
+     each line-search trial on the host by design);
   7. [graph] the flagship in bf16 and f32 under deterministic cuDNN: 10
      eager steps against Engine.run of 10 (one eager step, 9 replays) from
      the same seeds, every loss, param and the EMA bit for bit; both it/s;
@@ -61,7 +68,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
      counts;
  10. [ckpt] the flagship in bf16 under deterministic cuDNN: 10 steps,
      saved, restored into a fresh state, 10 more, against 20
-     uninterrupted, bit for bit.
+     uninterrupted, bit for bit;
+ 11. [lbfgs] the flagship with optimizer 'lbfgs' in bf16 and f32: 10 Adam
+     warm-up steps (graphed), then 10 eager L-BFGS steps: the loss falls
+     and is finite, and the seam kernels' launches are what the warm-up,
+     the value-and-gradient evaluations and the render imply; evaluations
+     and eager ms a step.
 The last three lines are the card line, a JSON object of the kernels (each
 with its launches on a main path, error, times, and the bound of this
 run's shapes on an H100: bytes at 3.35 TB/s against operations at 989
@@ -109,6 +121,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 MAIN_STEPS = 30
 GRAPH_STEPS = 10  # eager against graphed
+LBFGS_WARMUP, LBFGS_STEPS = 10, 10
 QUEUE_JOBS = 8
 KERNELS = {
     "fwd": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
@@ -160,6 +173,7 @@ WGRAD_CASES = [
     ("wgrad1x1", 0, (2, 64, 128, 128), (2, 64, 128, 128), "planar"),
 ]
 FIT_SIZE = 512  # the inpainting and restoration fits
+ZOO_NETS = ("UNet", "ResNet")  # the [zoo] fits: inpainting 'library' with these nets
 # the downsample kernel against its plain version: true f32 on both sides
 # (FMA chains against banded f32 matmuls with TF32 off), sums in another order
 DOWN_TOL = 1e-5
@@ -516,69 +530,139 @@ def phase_s2d_parity(dev: torch.device) -> dict:
     return stats
 
 
+def zoo_wgrad_calls(dev: torch.device) -> list[tuple]:
+    """Every distinct weight-gradient kernel call of one step of the [zoo]
+    fits (inpainting 'library' UNet and ResNet at 512^2, bf16 and f32,
+    conv_wgrad='all'), recorded by taking that step with the two wrappers
+    wrapped: (kernel, dtype, halo, x shape, x strides, g shape, g strides),
+    in the order of first call. The calls also launch the kernels; no
+    launch count is read across this."""
+    from dip_tpu_torch.ops import hopper_wgrad as W
+
+    seen: dict[tuple, None] = {}
+    orig = W.wgrad3x3_s1, W.wgrad1x1
+
+    def record(name, fn):
+        def call(x, g, *halo):
+            seen[(name, x.dtype, halo[0] if halo else 0, tuple(x.shape), x.stride(),
+                  tuple(g.shape), g.stride())] = None
+            return fn(x, g, *halo)
+        return call
+
+    W.wgrad3x3_s1, W.wgrad1x1 = record("wgrad3x3_s1", orig[0]), record("wgrad1x1", orig[1])
+    try:
+        for net_type in ZOO_NETS:
+            for cd in ("bfloat16", None):
+                spec = _masked_spec("inpaint", "library", cd, "all", net_type=net_type)
+                engine, state, aux = _fit_parts(spec, dev)
+                engine.step(state, aux)
+                del engine, state, aux
+    finally:
+        W.wgrad3x3_s1, W.wgrad1x1 = orig
+    return list(seen)
+
+
+def _operand(shape, layout, gen, dev, dtype) -> torch.Tensor:
+    """A random NHWC tensor: contiguous ('nhwc'), channel-planar ('planar',
+    the NHWC view of an NCHW-contiguous tensor) or laid out with the
+    strides `layout` gives."""
+    if isinstance(layout, str):
+        return _layout(shape, layout, gen, dev, dtype)
+    t = torch.empty_strided(shape, layout, device=dev, dtype=dtype)
+    return t.copy_(torch.randn(shape, generator=gen, device=dev))
+
+
+def _layout_name(shape, layout) -> str:
+    """'nhwc', 'planar', or the strides where they are neither."""
+    if isinstance(layout, str):
+        return layout
+    n, h, w, c = shape
+    named = {(h * w * c, w * c, c, 1): "nhwc", (c * h * w, w, 1, h * w): "planar"}
+    return named.get(tuple(layout), f"strides {tuple(layout)}")
+
+
 def phase_wgrad_parity(dev: torch.device) -> dict:
     """The 3x3 and 1x1 weight-gradient kernels against their plain
     versions, with times beside the plain version's and cuDNN's own weight
-    gradient (what the kernel replaces on the path; TF32 off). The bf16
-    kernel takes NHWC-dense operands: its timed lines also give the time of
-    the copies that make them (part of its own time). Returns each kernel's
-    figures at the top 'kate' shape, NHWC: bf16 as the row's own, f32 under
-    "f32"."""
+    gradient (what the kernel replaces on the path; TF32 off): at
+    WGRAD_CASES in both dtypes, then at every call of a [zoo] step
+    (zoo_wgrad_calls: the shapes, strides and dtypes that path gives the
+    kernels). The bf16 kernel takes NHWC-dense operands: its timed lines
+    also give the time of the copies that make them (part of its own
+    time). Returns each kernel's figures at the top 'kate' shape, NHWC:
+    bf16 as the row's own, f32 under "f32"."""
     from dip_tpu_torch.ops import hopper_wgrad as W
 
     stats = {k: {"max_abs_err": 0.0} for k in WGRAD}
     gen = torch.Generator(device=dev).manual_seed(4)
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, halo, xs, gs, layout in WGRAD_CASES:
-            x = _layout(xs, layout, gen, dev, dtype)
-            g = _layout(gs, layout, gen, dev, dtype)
-            ks = 3 if name == "wgrad3x3_s1" else 1
-            if ks == 3:
-                kern = lambda: W.wgrad3x3_s1(x, g, halo)  # noqa: E731
-                plain = lambda: W.wgrad3x3_s1_plain(x, g, halo)  # noqa: E731
-                copies = lambda: W._k5_operands(x, g, halo)  # noqa: E731
-            else:
-                kern = lambda: W.wgrad1x1(x, g)  # noqa: E731
-                plain = lambda: W.wgrad1x1_plain(x, g)  # noqa: E731
-                copies = lambda: (W._pad8(x), W._pad8(g))  # noqa: E731
-            w_size = (gs[3], xs[3], ks, ks)
-
-            def cudnn():
-                return torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), w_size,
-                                                   g.permute(0, 3, 1, 2), 1, halo)
-
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            if got.shape != want.shape or got.dtype != torch.float32:
-                raise RuntimeError(f"{name} {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)}")
-            rel, abs_err = rel_err(got, want)
-            again = kern()
-            if not torch.equal(again, got):
-                raise RuntimeError(f"{name} is not deterministic")
-            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], abs_err)
-            line = (f"[parity] {name:11s} {str(dtype)[6:]:8s} halo {halo} {layout:6s} x {xs} "
-                    f"g {gs}: rel {rel:.2e} abs {abs_err:.2e}")
-            if xs[1] >= 256:
-                reps = 5 if xs[1] >= 512 else 10
-                ms, plain_ms, dnn_ms = time_ms(kern, reps), time_ms(plain, reps), time_ms(cudnn, reps)
-                line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                         f"cudnn {dnn_ms:.4f} ms")
-                if dtype == torch.bfloat16:
-                    line += f", of which the operands' layout copies {time_ms(copies, reps):.4f} ms"
-                if (layout, xs[1], xs[3], gs[3]) == ("nhwc", 514 if ks == 3 else 512, 128, 128):
-                    bound_ms, by = wgrad_bound(ks, xs, gs, dtype)
-                    fig = dict(ms=ms, plain_ms=plain_ms, library_ms=dnn_ms, bound_ms=bound_ms,
-                               bound_by=by)
-                    if dtype == torch.bfloat16:
-                        stats[name].update(fig)
-                    else:
-                        stats[name]["f32"] = fig
-            log(line)
-            if rel > WGRAD_TOL[dtype]:
-                raise RuntimeError(f"{name} disagrees with its plain version: "
-                                   f"rel {rel:.3e} > {WGRAD_TOL[dtype]}")
-            del x, g, got, want, again
+    cases = [(name, dtype, halo, xs, layout, gs, layout, False)
+             for dtype in (torch.bfloat16, torch.float32)
+             for name, halo, xs, gs, layout in WGRAD_CASES]
+    zoo = zoo_wgrad_calls(dev)
+    log(f"[parity] a [zoo] step's weight-gradient calls: {len(zoo)} distinct")
+    cases += [(*call, True) for call in zoo]
+    for name, dtype, halo, xs, x_layout, gs, g_layout, on_zoo in cases:
+        x = _operand(xs, x_layout, gen, dev, dtype)
+        g = _operand(gs, g_layout, gen, dev, dtype)
+        label = (f"zoo x {_layout_name(xs, x_layout)}, g {_layout_name(gs, g_layout)}"
+                 if on_zoo else x_layout)
+        _hold_wgrad(W, name, halo, x, g, dtype, label, stats,
+                    top=not on_zoo and x_layout == "nhwc")
+        del x, g
     return stats
+
+
+def _hold_wgrad(W, name: str, halo: int, x: torch.Tensor, g: torch.Tensor,
+                dtype: torch.dtype, label: str, stats: dict, top: bool) -> None:
+    """One case of phase_wgrad_parity: the kernel against its plain version
+    at WGRAD_TOL, and deterministic; timed from 256^2, and its figures
+    kept in `stats` at the top 'kate' shape if `top` (an NHWC case)."""
+    xs, gs = tuple(x.shape), tuple(g.shape)
+    ks = 3 if name == "wgrad3x3_s1" else 1
+    if ks == 3:
+        kern = lambda: W.wgrad3x3_s1(x, g, halo)  # noqa: E731
+        plain = lambda: W.wgrad3x3_s1_plain(x, g, halo)  # noqa: E731
+        copies = lambda: W._k5_operands(x, g, halo)  # noqa: E731
+    else:
+        kern = lambda: W.wgrad1x1(x, g)  # noqa: E731
+        plain = lambda: W.wgrad1x1_plain(x, g)  # noqa: E731
+        copies = lambda: (W._pad8(x), W._pad8(g))  # noqa: E731
+    w_size = (gs[3], xs[3], ks, ks)
+
+    def cudnn():
+        return torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), w_size,
+                                           g.permute(0, 3, 1, 2), 1, halo)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != torch.float32:
+        raise RuntimeError(f"{name} {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)}")
+    rel, abs_err = rel_err(got, want)
+    again = kern()
+    if not torch.equal(again, got):
+        raise RuntimeError(f"{name} is not deterministic")
+    stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], abs_err)
+    line = (f"[parity] {name:11s} {str(dtype)[6:]:8s} halo {halo} {label:6s} x {xs} "
+            f"g {gs}: rel {rel:.2e} abs {abs_err:.2e}")
+    if xs[1] >= 256:
+        reps = 5 if xs[1] >= 512 else 10
+        ms, plain_ms, dnn_ms = time_ms(kern, reps), time_ms(plain, reps), time_ms(cudnn, reps)
+        line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                 f"cudnn {dnn_ms:.4f} ms")
+        if dtype == torch.bfloat16:
+            line += f", of which the operands' layout copies {time_ms(copies, reps):.4f} ms"
+        if top and (xs[1], xs[3], gs[3]) == (514 if ks == 3 else 512, 128, 128):
+            bound_ms, by = wgrad_bound(ks, xs, gs, dtype)
+            fig = dict(ms=ms, plain_ms=plain_ms, library_ms=dnn_ms, bound_ms=bound_ms,
+                       bound_by=by)
+            if dtype == torch.bfloat16:
+                stats[name].update(fig)
+            else:
+                stats[name]["f32"] = fig
+    log(line)
+    if rel > WGRAD_TOL[dtype]:
+        raise RuntimeError(f"{name} disagrees with its plain version: "
+                           f"rel {rel:.3e} > {WGRAD_TOL[dtype]}")
 
 
 def phase_small_reference(dev: torch.device) -> None:
@@ -636,6 +720,57 @@ def phase_small_reference(dev: torch.device) -> None:
             raise RuntimeError(f"small-input forward/gradients disagree with the CPU ({what})")
 
 
+def zoo_small_nets() -> dict:
+    """The zoo's nets at small sizes, every weight gradient from the
+    kernels where the net has a stride-1 3x3 or 1x1 conv: name ->
+    (model, input shape)."""
+    from dip_tpu_torch.models import DCGAN, ResNet, TextureNet, UNet
+
+    return {
+        "unet deconv": (UNet(1, feature_scale=8, more_layers=1, upsample_mode="deconv",
+                             norm_kind="instance", conv_wgrad="all"), (1, 64, 64, 1)),
+        "unet bilinear": (UNet(3, feature_scale=16, upsample_mode="bilinear", concat_x=True,
+                               norm_kind="batch", conv_wgrad="all"), (1, 32, 32, 3)),
+        "resnet": (ResNet(1, num_blocks=8, num_channels=32, conv_wgrad="all"), (1, 32, 32, 1)),
+        "texture_nets": (TextureNet(3, ratios=(8, 4, 2, 1), conv_wgrad="all"), (1, 32, 32, 3)),
+        "dcgan convT": (DCGAN(2, ndf=32, num_ups=5), (1, 8, 8, 2)),
+        "dcgan upsample": (DCGAN(2, ndf=32, num_ups=5, need_convT=False, conv_wgrad="all"),
+                           (1, 8, 8, 2)),
+    }
+
+
+def phase_zoo_small_reference(dev: torch.device, names: list[str] | None = None) -> None:
+    """The zoo's nets (zoo_small_nets, or those of `names`): forward and
+    every gradient on the card against the same net on the CPU, same
+    weights and input, under an MSE, TF32 off; the tolerances of
+    phase_small_reference."""
+    from dip_tpu_torch.fit.engine import disable_tf32
+
+    disable_tf32()
+    for name, (cpu, shape) in zoo_small_nets().items():
+        if names is not None and name not in names:
+            continue
+        cpu.reset_parameters(torch.Generator().manual_seed(4))
+        gpu = copy.deepcopy(cpu).to(dev)
+        z = torch.from_numpy(np.random.default_rng(4).normal(size=shape).astype(np.float32))
+        with torch.no_grad():
+            tgt = torch.rand(cpu(z).shape, generator=torch.Generator().manual_seed(5))
+        outs, grads = [], []
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            out = model(z.to(d))
+            loss = torch.mean((out - tgt.to(d)) ** 2)
+            grads.append([g.cpu() for g in torch.autograd.grad(loss, list(model.parameters()))])
+            outs.append(out.detach().cpu())
+        torch.cuda.synchronize()
+        _, out_abs = rel_err(outs[1], outs[0])
+        g_max = max(g.abs().max().item() for g in grads[0])
+        worst = max((g1 - g0).abs().max().item() for g0, g1 in zip(*grads)) / g_max
+        log(f"[small] {name} {tuple(shape)} conv_wgrad={cpu.conv_wgrad}: cuda vs cpu: out max "
+            f"abs {out_abs:.2e}, grads max err / max grad {worst:.2e}")
+        if out_abs > 2e-3 or worst > 2e-2:
+            raise RuntimeError(f"small-input forward/gradients disagree with the CPU ({name})")
+
+
 def reset_counts() -> None:
     """Set every kernel wrapper's launch counter to 0."""
     from dip_tpu_torch.ops import launches
@@ -651,38 +786,47 @@ def launch_counts() -> dict:
 
 
 def wgrad_per_step(model) -> tuple[int, int]:
-    """(3x3, 1x1) weight-gradient kernel launches per training step of a
-    Skip whose every decoder scale takes the fused seam (true of the fits
-    here): the routing of models/blocks._conv2d over the model's convs.
-    With the seam, a decoder conv's only conv part is its skip branch."""
-    n = len(model.ch_skip)
-    if any(k != 3 for k in model.k_up) or any(m not in ("nearest", "bilinear")
-                                               for m in model.up_modes):
-        raise ValueError("the count assumes a fused seam at every decoder scale")
-    kinds = []  # kernel size of each stride-1 conv, per step
-    for i in range(n):
-        if model.ch_skip[i]:
-            kinds.append(model.filter_skip_size)
-        if model.down_modes[i] != "stride":  # stride-1 conv, then the post-down
-            kinds.append(model.k_down[i])
-        kinds.append(model.k_down[i])
-        if model.ch_skip[i]:
-            kinds.append(model.k_up[i])
-        if model.need1x1_up:
-            kinds.append(1)
-    kinds.append(1)  # the head
+    """(3x3, 1x1) weight-gradient kernel launches per training step: the
+    routing of models/blocks._conv2d over the model's own Convs, one launch
+    for each stride-1 3x3 Conv (a stride-2 one with a post-down runs at
+    stride 1) and each 1x1 Conv that a step runs on a conv part, under the
+    model's conv_wgrad. Every Conv of the zoo's nets runs once a step on one
+    tensor. A Skip whose every decoder scale takes the fused seam (true of
+    the fits here) runs a decoder conv's conv part only on its skip branch,
+    so a scale without a skip launches no kernel for that conv."""
+    from dip_tpu_torch.models import Skip
+    from dip_tpu_torch.models.blocks import Conv
+
+    convs = [m for m in model.modules() if isinstance(m, Conv)]
+    if isinstance(model, Skip):
+        if any(k != 3 for k in model.k_up) or any(m not in ("nearest", "bilinear")
+                                                   for m in model.up_modes):
+            raise ValueError("the count assumes a fused seam at every decoder scale")
+        n = len(model.ch_skip)
+        # the decoder convs in creation order (models/skip.py): after the
+        # encoder's convs (2 a scale, 3 with a skip), each scale's k_up conv
+        # and, with need1x1_up, its 1x1
+        first = sum(3 if c else 2 for c in model.ch_skip)
+        step = 2 if model.need1x1_up else 1
+        seam_only = {id(convs[first + step * j]) for j, i in enumerate(reversed(range(n)))
+                     if not model.ch_skip[i]}
+        convs = [c for c in convs if id(c) not in seam_only]
+    runs = [c.kernel_size for c in convs if c.stride == 1 or c.post_down]
     mode = model.conv_wgrad
-    return (kinds.count(3) if mode in ("3x3", "all") else 0,
-            kinds.count(1) if mode in ("1x1", "all") else 0)
+    return (runs.count(3) if mode in ("3x3", "all") else 0,
+            runs.count(1) if mode in ("1x1", "all") else 0)
 
 
 def path_launches(model, steps: int, downsample_per_step: int = 0) -> dict:
-    """What a `steps`-step fit and its render launch: each of the seams
-    runs fwd (or fwd_carry where a skip branch hands it its carry), the s2d
-    pack of dz, dgrad and wgrad a step, and fwd once more in the render;
-    the weight-gradient kernels as wgrad_per_step says."""
-    n_seams = len(model.ch_skip)
-    carried = sum(1 for c in model.ch_skip if c) if model.seam_carry else 0
+    """What a `steps`-step fit and its render launch: each of a Skip's
+    seams runs fwd (or fwd_carry where a skip branch hands it its carry),
+    the s2d pack of dz, dgrad and wgrad a step, and fwd once more in the
+    render (the zoo's other nets have no seam); the weight-gradient
+    kernels as wgrad_per_step says."""
+    from dip_tpu_torch.models import Skip
+
+    n_seams = len(model.ch_skip) if isinstance(model, Skip) else 0
+    carried = sum(1 for c in model.ch_skip if c) if n_seams and model.seam_carry else 0
     k3, k1 = wgrad_per_step(model)
     return {"fwd": (steps + 1) * (n_seams - carried), "fwd_carry": (steps + 1) * carried,
             "dgrad": steps * n_seams, "wgrad": steps * n_seams, "downsample":
@@ -803,16 +947,19 @@ def phase_sr_path(dev: torch.device, card: str) -> dict:
     return total
 
 
-def _masked_spec(task: str, preset: str, cd: str | None, wgrad: str, param_noise=None):
+def _masked_spec(task: str, preset: str, cd: str | None, wgrad: str, param_noise=None,
+                 net_type: str = "skip"):
     """A 30-step inpainting or restoration spec on the synthetic image,
     with its mask (restoration: the Bernoulli mask of the preset's pixel
-    fraction), conv_wgrad and, if given, param_noise."""
+    fraction), conv_wgrad and, if given, param_noise; inpainting with the
+    net of `net_type`."""
     from dip_tpu_torch.bench import synthetic_inpaint
     from dip_tpu_torch.tasks import inpaint, restore
 
     img, mask = synthetic_inpaint(FIT_SIZE)
     if task == "inpaint":
-        spec = inpaint.task(img * mask, mask, preset, gt=img, num_iter=MAIN_STEPS)
+        spec = inpaint.task(img * mask, mask, preset, gt=img, num_iter=MAIN_STEPS,
+                            net_type=net_type)
     else:
         keep = {"barbara": 0.5, "kate": 0.02}[preset]
         mask = restore.get_bernoulli_mask(img.shape[1:], 1 - keep)[None]
@@ -850,6 +997,18 @@ def phase_masked_paths(dev: torch.device, card: str) -> dict:
     return first
 
 
+def phase_zoo_paths(dev: torch.device, card: str) -> None:
+    """[zoo] Inpainting 'library' with its UNet and its ResNet through
+    run_task at 512^2, bf16 and f32, every weight gradient from the
+    kernels: falling loss, rising psnr_track, a finite render, and the K5
+    and K6 launches the nets' Convs imply; the graphed it/s."""
+    for net_type in ZOO_NETS:
+        for cd in ("bfloat16", None):
+            spec = _masked_spec("inpaint", "library", cd, "all", net_type=net_type)
+            run_fit(spec, dev, card, "zoo", f"inpaint library {net_type} {cd or 'float32'} "
+                    f"conv_wgrad=all", path_launches(spec.model, MAIN_STEPS), "psnr_track")
+
+
 def _steps_without_sync(spec, dev: torch.device, what: str) -> None:
     """Engine.step only enqueues work: after one warm step, three steps
     under torch's sync debug mode, which raises on any call that makes the
@@ -879,7 +1038,8 @@ def phase_steps_without_sync(dev: torch.device) -> None:
     jitter schedule and with SGD; the SR step (the downsample kernel in the
     loss and the metrics, its PyTorch adjoint, the carry-in seams); and the
     inpainting 'kate' step with every weight gradient from the kernels and
-    weight jitter on."""
+    weight jitter on. Not L-BFGS: its line search reads each trial's Wolfe
+    test on the host, which is why its steps run eagerly."""
     for cd in ("bfloat16", None):
         _steps_without_sync(_flagship_spec(cd), dev, f"flagship {cd or 'float32'}")
     for what, over in (("reg_noise_schedule ((2, 0.1), (3, 0.05))",
@@ -1074,6 +1234,43 @@ def phase_checkpoint(dev: torch.device, card: str) -> None:
         raise RuntimeError("the resumed fit differs from the uninterrupted one")
 
 
+def phase_lbfgs(dev: torch.device, card: str) -> None:
+    """[lbfgs] The flagship ('f16' at 512^2, full width) with optimizer
+    'lbfgs' through run_task, bf16 and f32: LBFGS_WARMUP graphed Adam
+    steps, then LBFGS_STEPS eager L-BFGS steps, a host callback after each.
+    The loss falls over the L-BFGS steps and is finite, the render is
+    finite, and the launch counts are those of LBFGS_WARMUP steps, one
+    forward and backward a value-and-gradient evaluation, and the render;
+    evaluations a step and the eager ms a step (steps 2 to LBFGS_STEPS)."""
+    from dip_tpu_torch.tasks.base import run_task
+
+    for cd in ("bfloat16", None):
+        spec = _flagship_spec(cd, LBFGS_STEPS, 1)
+        spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+            spec.cfg, optimizer="lbfgs", lbfgs_warmup=LBFGS_WARMUP))
+        marks: list[float] = []
+        reset_counts()
+        out, state, hist = run_task(spec, 0, device=dev,
+                                    callback=lambda it, h, s: marks.append(time.perf_counter()))
+        delta = launch_counts()
+        evals = int(hist["evals"].sum())
+        want = path_launches(spec.model, LBFGS_WARMUP + evals)
+        loss = hist["loss"]
+        ms = (marks[-1] - marks[0]) * 1e3 / (len(marks) - 1)
+        log(f"[lbfgs] flagship {cd or 'float32'}: {LBFGS_WARMUP} Adam warm-up steps, then "
+            f"{LBFGS_STEPS} L-BFGS steps, {evals} evaluations (a step: "
+            f"{' '.join(str(int(e)) for e in hist['evals'])}; mean {evals / LBFGS_STEPS:.2f}) "
+            f"| eager {ms:.2f} ms/step (steps 2-{LBFGS_STEPS}), {ms * LBFGS_STEPS / evals:.2f} "
+            f"ms/evaluation | loss {loss[0]:.5f} -> {loss[-1]:.5f} | launches {delta} | step "
+            f"{state.step} | card {card}")
+        if delta != want:
+            raise RuntimeError(f"launch counts {delta} != {want}")
+        if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
+            raise RuntimeError(f"loss not finite and falling: {loss}")
+        if state.step != LBFGS_WARMUP + LBFGS_STEPS or not torch.isfinite(out).all():
+            raise RuntimeError(f"bad end of the L-BFGS fit: step {state.step}")
+
+
 def _entry(name: str, src_rep: tuple[str, str], launches: int, stats: dict) -> dict:
     return {"name": name, "route": "cuda", "source": src_rep[0], "replaces": src_rep[1],
             "launches": launches, "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
@@ -1096,14 +1293,17 @@ def main() -> int:
     s2d = phase_s2d_parity(dev)
     wgrad = phase_wgrad_parity(dev)
     phase_small_reference(dev)
+    phase_zoo_small_reference(dev)
     launches, b1_ips = phase_main_path(dev, card)
     sr_launches = phase_sr_path(dev, card)
     masked_launches = phase_masked_paths(dev, card)
+    phase_zoo_paths(dev, card)
     phase_steps_without_sync(dev)
     phase_graph(dev, card)
     phase_queue(dev, card, b1_ips)
     phase_flash(dev, card)
     phase_checkpoint(dev, card)
+    phase_lbfgs(dev, card)
     # each kernel's launches come from the main path that runs it: the
     # flagship fit for the seam's fwd, dgrad and wgrad and the s2d pack,
     # the SR fits for the carry-in forward and the downsample, the

@@ -17,13 +17,16 @@ no CPU fallback: without a card it raises.
     python -m dip_tpu_torch.bench [--size 512] [--iters 100]
     python -m dip_tpu_torch.bench --profile 5   # kernel tables per dtype
     python -m dip_tpu_torch.bench --profile 5 --fit kate [--conv-wgrad 3x3]
+    python -m dip_tpu_torch.bench --profile 5 --fit library-unet --conv-wgrad all
 
 `--profile` profiles a graphed chunk and then as many eager steps, and
 prints each window's wall and kernel ms a step and the device's idle
 share. `--fit kate` profiles inpainting 'kate' (128-channel skips, nearest
 up, masked MSE) on a synthetic image and mask of the same size in place of
-the flagship; `--conv-wgrad` routes its conv weight gradients through the
-port's kernels (the model's `conv_wgrad`, 'off' by default). The bf16 3x3
+the flagship, `--fit library-unet` and `library-resnet` inpainting
+'library' with its UNet or its ResNet; `--conv-wgrad` routes their conv
+weight gradients through the port's kernels (the model's `conv_wgrad`,
+'off' by default). The bf16 3x3
 and 1x1 gradients (K5, K6) share `up_conv_wgrad_mma_kernel` and its sum
 passes with the seam's (K3): the profile of the same fit with 'off' gives
 K3's share. In f32 both run `wgrad_f32_kernel` and `wgrad_sum_kernel`.
@@ -109,17 +112,25 @@ def _cuda(device: str) -> torch.device:
     return dev
 
 
+# the inpainting fits --profile runs: fit -> (preset, net_type)
+MASKED_FITS = {"kate": ("kate", "skip"), "library-unet": ("library", "UNet"),
+               "library-resnet": ("library", "ResNet")}
+
+
 def _kate(size: int, compute_dtype: str | None, device: str, conv_wgrad: str = "off",
-          steps: int = 100):
-    """(engine, state, aux) of inpainting 'kate' on a CUDA device, its conv
-    weight gradients routed as `conv_wgrad` says, in chunks of `steps`."""
+          steps: int = 100, fit: str = "kate"):
+    """(engine, state, aux) of inpainting 'kate' (or of the inpainting fit
+    `fit` of MASKED_FITS) on a CUDA device, its conv weight gradients routed
+    as `conv_wgrad` says, in chunks of `steps`. seam_times.py imports it
+    from either checkout it compares."""
     import dataclasses
 
     from dip_tpu_torch.tasks import inpaint
     from dip_tpu_torch.tasks.base import start_task
 
+    preset, net_type = MASKED_FITS[fit]
     img, mask = synthetic_inpaint(size)
-    spec = inpaint.task(img * mask, mask, "kate", gt=img)
+    spec = inpaint.task(img * mask, mask, preset, gt=img, net_type=net_type)
     spec.model.conv_wgrad = conv_wgrad
     spec = dataclasses.replace(spec, cfg=dataclasses.replace(
         spec.cfg, compute_dtype=compute_dtype, log_every=steps))
@@ -279,7 +290,7 @@ def _profile_window(prof_steps, steps: int, what: str, eng) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device rows, less the user annotations that also land on the device's
-    # timeline (Optimizer.step#Adam.step spans the optimizer's kernels)
+    # timeline (Optimizer.step#Adam.step spans the whole step's kernels)
     avgs = prof.key_averages()
     device = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.is_user_annotation]
@@ -310,11 +321,11 @@ def _profile_window(prof_steps, steps: int, what: str, eng) -> dict:
 
 def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
             device: str = "cuda", fit: str = "flagship", conv_wgrad: str = "off") -> dict:
-    """The flagship (or inpainting 'kate', with `conv_wgrad`) under
-    torch.profiler, after a warm chunk and 10 warm eager steps: a graphed
-    chunk of `steps` replays, then `steps` eager steps."""
-    if fit == "kate":
-        eng, state, target = _kate(size, compute_dtype, device, conv_wgrad, steps)
+    """The flagship (or an inpainting fit of MASKED_FITS, with
+    `conv_wgrad`) under torch.profiler, after a warm chunk and 10 warm eager
+    steps: a graphed chunk of `steps` replays, then `steps` eager steps."""
+    if fit in MASKED_FITS:
+        eng, state, target = _kate(size, compute_dtype, device, conv_wgrad, steps, fit)
     else:
         eng, state, target = _flagship(size, steps, compute_dtype, device)
 
@@ -330,7 +341,7 @@ def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
     for _ in range(10):
         eng.step(state, target)
     tag = compute_dtype or "float32"
-    what = f"{fit} {tag}" + (f" conv_wgrad={conv_wgrad}" if fit == "kate" else "")
+    what = f"{fit} {tag}" + (f" conv_wgrad={conv_wgrad}" if fit in MASKED_FITS else "")
     out = {"fit": fit, "dtype": tag, "conv_wgrad": conv_wgrad}
     for mode, fn in (("graphed", graphed), ("eager", eager)):
         out[mode] = _profile_window(fn, steps, f"{what} {mode}", eng)
@@ -345,13 +356,14 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="instead of timing, profile STEPS steps per dtype")
-    ap.add_argument("--fit", choices=("flagship", "kate"), default="flagship",
+    ap.add_argument("--fit", choices=("flagship", *MASKED_FITS), default="flagship",
                     help="the fit --profile runs")
     ap.add_argument("--conv-wgrad", default="off", choices=CONV_WGRAD,
-                    help="--fit kate: route these conv weight gradients through the kernels")
+                    help="an inpainting --fit: route these conv weight gradients through "
+                         "the kernels")
     args = ap.parse_args()
-    if args.conv_wgrad != "off" and not (args.profile and args.fit == "kate"):
-        ap.error("--conv-wgrad is an option of --profile with --fit kate")
+    if args.conv_wgrad != "off" and not (args.profile and args.fit in MASKED_FITS):
+        ap.error("--conv-wgrad is an option of --profile with an inpainting --fit")
     if args.profile:
         for cd in ("bfloat16", None):
             profile(args.size, args.profile, cd, fit=args.fit, conv_wgrad=args.conv_wgrad)

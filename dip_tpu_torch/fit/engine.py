@@ -16,7 +16,9 @@ the EMA, the backtracking snapshot, the tracked PSNR, the step counter on
 the device) is updated in place, the jitter schedule and the EMA's first
 step are chosen on the device from that counter, and metrics stay 0-d
 device tensors, so the step holds no host sync and no Python branch on
-the step number.
+the step number. L-BFGS is the exception: its line search reads each
+trial's Wolfe test on the host, so its steps run eagerly on every device
+(`capture` raises for it); its Adam warm-up is graphed as any Adam fit.
 
 Semantics (as the JAX engine):
  - input jitter: z_used = z + N(0,1) * std each step, std from
@@ -35,7 +37,14 @@ Semantics (as the JAX engine):
    The optimizer's moments are not restored.
  - optimizer: 'adam' (capturable on CUDA, so the eager and the replayed
    step run the same arithmetic) or 'sgd' (plain SGD, optax.sgd's
-   defaults); 'lbfgs' is not ported yet.
+   defaults) or 'lbfgs' (fit/lbfgs.py, optax.lbfgs with its zoom line
+   search): at the fit's start, `lbfgs_warmup` Adam steps at
+   `lbfgs_warmup_lr` without backtracking, then a fresh L-BFGS state and
+   `num_iter` L-BFGS steps. Each L-BFGS step draws its input jitter and
+   weight jitter once, and every evaluation of its line search runs the
+   forward with those draws. The metrics are those of the step's first
+   evaluation (the params before the update), plus 'evals', the step's
+   value-and-gradient evaluations.
  - compute_dtype='bfloat16': the net's params and z are cast each step
    (master params stay f32, the output goes back to f32 before the loss);
    no autocast. Extra trainable leaves stay f32.
@@ -55,23 +64,26 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from dip_tpu_torch.fit.lbfgs import ZoomLBFGS
 from dip_tpu_torch.ops import launches
 from dip_tpu_torch.ops.losses import psnr
 
-OPTIMIZERS = ("adam", "sgd")
+OPTIMIZERS = ("adam", "sgd", "lbfgs")
 
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
     num_iter: int = 3000
     lr: float = 0.01
-    optimizer: str = "adam"           # 'adam' | 'sgd' ('lbfgs' is not ported yet)
+    optimizer: str = "adam"           # 'adam' | 'sgd' | 'lbfgs'
     reg_noise_std: float = 0.0        # input jitter std
     param_noise: bool = False         # conv-weight jitter
     exp_weight: float | None = None   # EMA factor, e.g. 0.99
     backtrack: bool = False
     backtrack_threshold: float = 5.0
     log_every: int = 100              # steps between host syncs
+    lbfgs_warmup: int = 100           # Adam steps before L-BFGS
+    lbfgs_warmup_lr: float = 1e-3
     compute_dtype: str | None = None  # 'bfloat16' for mixed precision
     opt_input: bool = False           # optimise z as well
     opt_over: str = "net"             # 'net,input,down'; 'input' sets opt_input
@@ -185,8 +197,6 @@ class Engine:
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, cfg: FitConfig,
                  metrics_fn: Callable | None = None, *, device: torch.device | str):
-        if cfg.optimizer == "lbfgs":
-            raise ValueError("optimizer 'lbfgs' is not ported yet; use 'adam' or 'sgd'")
         if cfg.optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}; one of {OPTIMIZERS}")
         if cfg.compute_dtype not in (None, "bfloat16"):
@@ -228,13 +238,7 @@ class Engine:
             if k in params:
                 raise ValueError(f"trainable leaf {k!r} clashes with a parameter name")
             params[k] = v.detach().to(self.device, torch.float32).clone().requires_grad_()
-        if self.cfg.optimizer == "sgd":
-            opt = torch.optim.SGD(params.values(), lr=self.cfg.lr)
-        else:
-            # capturable on CUDA whether the step is replayed or eager, so
-            # both run the same arithmetic (the CPU does not allow it)
-            opt = torch.optim.Adam(params.values(), lr=self.cfg.lr,
-                                   capturable=self.device.type == "cuda")
+        opt = self._optimizer(params)
         jitter = torch.Generator(device=self.device).manual_seed(seed + 1)
         param_gen = (torch.Generator(device=self.device).manual_seed(seed + 2)
                      if self.cfg.param_noise else None)
@@ -246,18 +250,35 @@ class Engine:
                         device_step=torch.zeros((), dtype=torch.int64, device=self.device),
                         param_generator=param_gen)
 
-    def net_params(self, state: FitState, train: bool) -> dict[str, torch.Tensor]:
+    def _optimizer(self, params: dict[str, torch.Tensor]) -> torch.optim.Optimizer:
+        if self.cfg.optimizer == "sgd":
+            return torch.optim.SGD(params.values(), lr=self.cfg.lr)
+        if self.cfg.optimizer == "lbfgs":
+            return ZoomLBFGS(params.values())
+        # capturable on CUDA whether the step is replayed or eager, so both
+        # run the same arithmetic (the CPU does not allow it)
+        return torch.optim.Adam(params.values(), lr=self.cfg.lr,
+                                capturable=self.device.type == "cuda")
+
+    def _weight_noise(self, state: FitState) -> dict[str, torch.Tensor]:
+        """N(0,1) of each 4-D net parameter's shape, by name, from the
+        weight-jitter generator."""
+        return {k: torch.randn(w.shape, generator=state.param_generator, device=w.device,
+                               dtype=w.dtype)
+                for k, w in ((k, state.params[k]) for k in self.net_keys) if w.dim() == 4}
+
+    def net_params(self, state: FitState, train: bool,
+                   noise: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
         """The net's parameters as a forward sees them, in f32: with
         param_noise and `train`, each 4-D one plus N(0,1) * std(w) / 50
-        (std with ddof 0, as jnp.std), a fresh draw per call."""
+        (std with ddof 0, as jnp.std), the N(0,1) from `noise` if given
+        (_weight_noise's draws), else a fresh draw per call."""
         net = {k: state.params[k] for k in self.net_keys}
         if not (train and self.cfg.param_noise):
             return net
-        for k, w in net.items():
-            if w.dim() == 4:
-                noise = torch.randn(w.shape, generator=state.param_generator,
-                                    device=w.device, dtype=w.dtype)
-                net[k] = w + noise * (torch.std(w, correction=0) / 50.0)
+        for k, eps in (self._weight_noise(state) if noise is None else noise).items():
+            w = net[k]
+            net[k] = w + eps * (torch.std(w, correction=0) / 50.0)
         return net
 
     def _forward(self, net: dict[str, torch.Tensor], z: torch.Tensor) -> torch.Tensor:
@@ -270,33 +291,51 @@ class Engine:
     def _base_input(self, state: FitState) -> torch.Tensor:
         return state.params["input"] if self.cfg.opt_input else state.z
 
-    def _jittered_input(self, state: FitState) -> torch.Tensor:
+    def _jitter(self, state: FitState) -> torch.Tensor | None:
+        """This step's input jitter, std * N(0,1) (None without jitter)."""
         cfg = self.cfg
-        z = self._base_input(state)
         if self._schedule is not None:
             std = schedule_std(state.device_step, *self._schedule)
         elif cfg.reg_noise_std > 0:
             std = cfg.reg_noise_std
         else:
-            return z
-        return z + std * torch.randn(state.z.shape, generator=state.generator,
-                                     device=self.device, dtype=state.z.dtype)
+            return None
+        return std * torch.randn(state.z.shape, generator=state.generator,
+                                 device=self.device, dtype=state.z.dtype)
+
+    def _update(self, state: FitState, aux: Any) -> tuple[torch.Tensor, torch.Tensor]:
+        """One optimizer step, `state.opt.step(closure)`: the input and
+        weight jitter drawn once, the closure a forward with those draws
+        around the params as they stand, the loss and its backward (Adam
+        and SGD call it once, L-BFGS's line search once a trial). Returns
+        the loss and the output at the params before the update."""
+        jitter = self._jitter(state)
+        noise = self._weight_noise(state) if self.cfg.param_noise else None
+        first: list[torch.Tensor] = []
+
+        def closure():
+            z = self._base_input(state)
+            out = self._forward(self.net_params(state, True, noise),
+                                z if jitter is None else z + jitter)
+            loss = self.loss_fn(state.params, out, aux)
+            state.opt.zero_grad(set_to_none=True)
+            loss.backward()
+            if not first:
+                # the output as computed: with a trainable z, an identity
+                # net's output is the leaf itself, which the update changes
+                first.append(out.detach().clone() if self.cfg.opt_input else out.detach())
+            return loss
+
+        return state.opt.step(closure).detach(), first[0]
 
     def _advance(self, state: FitState, aux: Any) -> dict:
         """One training step on the device, every buffer of `state` updated
         in place (its host `step` aside); returns the metrics, 0-d
         tensors. This is the body the CUDA graph captures."""
         cfg = self.cfg
-        out = self._forward(self.net_params(state, train=True), self._jittered_input(state))
-        loss = self.loss_fn(state.params, out, aux)
-        state.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        # the output as computed: with a trainable z, an identity net's
-        # output is the leaf itself, which the update changes in place
-        out = out.detach().clone() if cfg.opt_input else out.detach()
         if cfg.backtrack:
             pre = {k: p.detach().clone() for k, p in state.params.items()}
-        state.opt.step()
+        loss, out = self._update(state, aux)
 
         if state.ema_out is None:
             state.ema_out = torch.zeros_like(out)
@@ -308,6 +347,8 @@ class Engine:
                               state.ema_out * w + out * (1 - w))
 
         metrics = {"loss": loss.detach()}
+        if cfg.optimizer == "lbfgs":
+            metrics["evals"] = torch.tensor(float(state.opt.last_evals), device=self.device)
         if self.metrics_fn is not None:
             metrics.update(self.metrics_fn(out, ema, aux))
 
@@ -347,7 +388,11 @@ class Engine:
         draws on from where the last step left the generators. That eager
         step is the first of the next chunk. A capture launches nothing: the
         counters it moved are taken back, and each replay adds them. Raises
-        if the capture fails. Nothing to do on the CPU."""
+        if the capture fails, and for L-BFGS, on any device: its line
+        search reads each trial on the host. Nothing else to do on the CPU."""
+        if self.cfg.optimizer == "lbfgs":
+            raise RuntimeError("an L-BFGS step reads its line search on the host and cannot be "
+                               "captured; run and run_chunk take its steps eagerly")
         g = state.graph
         if self._stream is None or (g is not None and g.aux is aux):
             return
@@ -384,11 +429,15 @@ class Engine:
         steps run on the fit's stream, as replays of the state's graph
         (captured first, as `capture` says, if the state has none for this
         aux), and nothing waits for them: `wait()` makes the caller's
-        stream wait. On the CPU, eager steps. n is at most cfg.log_every, the
-        rows the graph writes."""
+        stream wait. On the CPU, and for L-BFGS on any device, eager steps;
+        an L-BFGS fit's first chunk runs its Adam warm-up first (`_warmup`).
+        n is at most cfg.log_every, the rows the graph writes."""
         if not 0 < n <= self.cfg.log_every:
             raise ValueError(f"a chunk is 1 to log_every={self.cfg.log_every} steps, not {n}")
-        if self._stream is None:
+        lbfgs = self.cfg.optimizer == "lbfgs"
+        if lbfgs and state.step == 0 and self.cfg.lbfgs_warmup > 0:
+            self._warmup(state, aux)
+        if self._stream is None or lbfgs:
             hist = [self.step(state, aux)[1] for _ in range(n)]
             return {k: torch.stack([m[k] for m in hist]) for k in hist[0]}
         self.capture(state, aux)
@@ -403,6 +452,25 @@ class Engine:
             state.step += n - g.pending
             g.pending = 0
             return {k: g.table[:n, i].clone() for i, k in enumerate(g.keys)}
+
+    def _warmup(self, state: FitState, aux: Any) -> None:
+        """The L-BFGS fit's warm-up (the JAX engine's `_warmup`):
+        cfg.lbfgs_warmup Adam steps at cfg.lbfgs_warmup_lr with
+        backtracking off, through an Adam engine on this fit's model,
+        params, EMA, jitter streams and step counters (graphed on CUDA);
+        their metrics are dropped. Then a fresh L-BFGS state."""
+        cfg = self.cfg
+        warm = Engine(self.model, self.loss_fn, dataclasses.replace(
+            cfg, optimizer="adam", lr=cfg.lbfgs_warmup_lr, num_iter=cfg.lbfgs_warmup,
+            backtrack=False), self.metrics_fn, device=self.device)
+        wstate = dataclasses.replace(state, opt=warm._optimizer(state.params), snapshot={},
+                                     graph=None)
+        warm.run(wstate, aux)
+        if self._stream is not None:
+            # the warm-up's graph and its pool go with wstate
+            torch.cuda.synchronize(self.device)
+        state.ema_out, state.step = wstate.ema_out, wstate.step
+        state.opt = self._optimizer(state.params)
 
     def wait(self) -> None:
         """Make the caller's current stream wait for this fit's stream (no

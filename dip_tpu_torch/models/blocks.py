@@ -1,4 +1,4 @@
-"""Building blocks of the skip net, NHWC at every public function.
+"""Building blocks of the generator zoo, NHWC at every public function.
 
 Counterpart of dip_tpu/models/blocks.py. Convolution weights are OIHW
 (PyTorch's layout); activations stay NHWC, and a contiguous NHWC tensor
@@ -35,11 +35,12 @@ def check_conv_wgrad(mode: str) -> str:
 
 
 def torch_conv_init_(weight: torch.Tensor, bias: torch.Tensor | None,
-                     generator: torch.Generator) -> None:
+                     generator: torch.Generator, fan_in: int | None = None) -> None:
     """PyTorch's Conv2d default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the
     kernel and the bias, drawn on the CPU so that init is the same on every
-    device."""
-    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    device. fan_in defaults to an OIHW weight's I*H*W."""
+    if fan_in is None:
+        fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
         for p in (weight, bias):
@@ -129,6 +130,33 @@ class TrainBatchNorm(nn.Module):
             out.append(y)
             off += ci
         return out if parts else out[0]
+
+
+class InstanceNorm(nn.Module):
+    """Per image and channel normalisation over (H, W), without an affine
+    map (InstanceNorm2d's defaults, UNet's norm layer). The moments are
+    two-pass f32; the result has x's dtype."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=(1, 2), correction=0, keepdim=True)
+        return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+
+
+def norm(kind: str | None, features: int) -> nn.Module:
+    """The norm layer of `kind` ('batch', 'instance', or None / 'none' for
+    none) over `features` channels."""
+    if kind in (None, "none"):
+        return nn.Identity()
+    if kind == "batch":
+        return TrainBatchNorm(features)
+    if kind == "instance":
+        return InstanceNorm()
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 def _conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int,
@@ -228,6 +256,54 @@ class Conv(nn.Module):
             # the downsample kernel takes f32
             y = downsample(y.float(), self.stride, self.post_down, 0.5, True).to(y.dtype)
         return y
+
+
+class ConvTranspose(nn.Module):
+    """Transposed conv, NHWC, with ConvTranspose2d(padding=p)'s semantics
+    and its (in, out, k, k) weight; the init's fan-in is in * k * k, as the
+    JAX package draws it. Its gradients are cuDNN's."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int, stride: int,
+                 padding: int = 0, bias: bool = True):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        self.weight = nn.Parameter(
+            torch.empty(in_channels, features, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(features)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        w = self.weight
+        torch_conv_init_(w, self.bias, generator, w.shape[0] * w.shape[2] * w.shape[3])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride,
+                               self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class GenNoise(nn.Module):
+    """Fresh N(0,1) noise shaped like the NHWC input but with `features`
+    channels, drawn from the caller's generator (on the input's device)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.features = features
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        n, h, w, _ = x.shape
+        return torch.randn((n, h, w, self.features), generator=generator, device=x.device,
+                           dtype=x.dtype)
+
+
+def reset_parameters_(model: nn.Module, generator: torch.Generator) -> None:
+    """Torch-style init of every Conv, ConvTranspose and TrainBatchNorm of
+    `model`, in registration order, the convs drawing from `generator`."""
+    for m in model.modules():
+        if isinstance(m, (Conv, ConvTranspose)):
+            m.reset_parameters(generator)
+        elif isinstance(m, TrainBatchNorm):
+            m.reset_parameters()
 
 
 def crop_to_min(tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:

@@ -1,5 +1,5 @@
 """Fit losses and image metrics (counterpart of dip_tpu/ops/losses.py's
-`mse`, `masked_mse`, `tv_loss`, `psnr` and `psnr_y`)."""
+`mse`, `masked_mse`, `tv_loss`, `psnr`, `psnr_y` and `gram_matrix`)."""
 
 from __future__ import annotations
 
@@ -43,3 +43,11 @@ def psnr_y(pred_rgb: torch.Tensor, target_rgb: torch.Tensor, crop: int = 0) -> t
         pred_rgb = pred_rgb[..., crop:-crop, crop:-crop, :]
         target_rgb = target_rgb[..., crop:-crop, crop:-crop, :]
     return psnr(rgb_to_ycbcr_y(pred_rgb), rgb_to_ycbcr_y(target_rgb))
+
+
+def gram_matrix(x: torch.Tensor) -> torch.Tensor:
+    """Normalised Gram matrix of NHWC features, (N, C, C) / (C*H*W), in f32
+    (f32 products and sums of x's values)."""
+    n, h, w, c = x.shape
+    f = x.reshape(n, h * w, c).float()
+    return torch.einsum("npc,npd->ncd", f, f) / (c * h * w)

@@ -4,8 +4,8 @@ the inpainting.ipynb recipes).
 Presets: 'vase' (meshgrid input, a skip net without skips), 'kate' (text
 inpainting, the README's convergence smoke test: 5 scales of 128 channels
 with 128-channel skips) and 'library' (a 6-scale net with 5x5 down-convs
-and weight jitter). The library preset's UNet and ResNet variants wait for
-the port of the model zoo and raise.
+and weight jitter; `net_type` 'UNet' or 'ResNet' fit those nets at lr
+1e-3 without weight jitter).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from dip_tpu_torch.fit.engine import FitConfig
-from dip_tpu_torch.models import Skip
+from dip_tpu_torch.models import ResNet, Skip, UNet
 from dip_tpu_torch.ops.losses import masked_mse, psnr
 from dip_tpu_torch.tasks.base import TaskSpec
 
@@ -51,17 +51,24 @@ def task(img_nhwc, mask_nhwc, preset: str = "kate", gt=None, num_iter: int | Non
                      num_channels_up=[128] * 5, num_channels_skip=[128] * 5, **common)
     elif preset == "library":
         input_depth, iters, jitter = 1, 3001, 0.0
-        if not net_type.startswith("skip"):
-            if net_type in ("UNet", "ResNet"):
-                raise NotImplementedError(f"net_type {net_type!r} is not ported yet "
-                                          f"(it waits for the model zoo)")
+        if net_type.startswith("skip"):
+            depth = int(net_type[-1]) if net_type[-1].isdigit() else 6
+            param_noise = True
+            chans = [16, 32, 64, 128, 128, 128][:depth]
+            model = Skip(num_input_channels=1, num_channels_down=chans, num_channels_up=chans,
+                         num_channels_skip=[0] * depth, filter_size_down=5, filter_size_up=3,
+                         need1x1_up=False, **common)
+        elif net_type == "UNet":
+            lr = 1e-3
+            model = UNet(num_input_channels=1, num_output_channels=n_out, feature_scale=8,
+                         more_layers=1, upsample_mode="deconv", pad="zero",
+                         norm_kind="instance")
+        elif net_type == "ResNet":
+            lr = 1e-3
+            model = ResNet(num_input_channels=1, num_output_channels=n_out, num_blocks=8,
+                           num_channels=32)
+        else:
             raise ValueError(f"unknown net_type {net_type!r}")
-        depth = int(net_type[-1]) if net_type[-1].isdigit() else 6
-        param_noise = True
-        chans = [16, 32, 64, 128, 128, 128][:depth]
-        model = Skip(num_input_channels=1, num_channels_down=chans, num_channels_up=chans,
-                     num_channels_skip=[0] * depth, filter_size_down=5, filter_size_up=3,
-                     need1x1_up=False, **common)
     else:
         raise ValueError(f"unknown preset {preset!r}")
 

@@ -1,6 +1,6 @@
 """The port's fit extras against the JAX package's, on the CPU: the jitter
 schedule, SGD, the step the CUDA graph holds (run uncaptured), the
-'lbfgs' refusal and the functional facade."""
+refused capture of an 'lbfgs' step and the functional facade."""
 
 import numpy as np
 import pytest
@@ -149,9 +149,13 @@ def test_replayable_step_equals_step():
 
 
 def test_lbfgs_raises_and_unknown_optimizer_raises():
-    with pytest.raises(ValueError, match="not ported yet"):
-        teng.Engine(_Identity(), lambda p, out, aux: out.sum(),
-                    teng.FitConfig(optimizer="lbfgs"), device="cpu")
+    """An L-BFGS engine builds, and its capture raises (the line search
+    reads each trial on the host: tests/test_torch_lbfgs.py); an unknown
+    optimizer raises."""
+    eng = teng.Engine(_Identity(), lambda p, out, aux: out.sum(),
+                      teng.FitConfig(optimizer="lbfgs"), device="cpu")
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        eng.capture(eng.init_state(0, torch.zeros(1, 4, 4, 2)), None)
     with pytest.raises(ValueError, match="unknown optimizer"):
         teng.Engine(_Identity(), lambda p, out, aux: out.sum(),
                     teng.FitConfig(optimizer="rmsprop"), device="cpu")

@@ -160,9 +160,12 @@ def test_preset_spec_and_net_match_jax(task, preset, net_type, size):
 
 @pytest.mark.parametrize("net_type", ["UNet", "ResNet"])
 def test_library_zoo_variants_raise(net_type):
+    """The 'library' UNet and ResNet variants build their nets (their
+    parity is tests/test_torch_zoo.py's); an unknown net type or preset
+    raises."""
     masked, mask, _ = _image(32)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tinpaint.task(masked, mask, "library", net_type=net_type)
+    spec = tinpaint.task(masked, mask, "library", net_type=net_type)
+    assert type(spec.model).__name__ == net_type and spec.cfg.lr == 1e-3
     with pytest.raises(ValueError):
         tinpaint.task(masked, mask, "library", net_type="VGG")
     with pytest.raises(ValueError):
@@ -308,8 +311,8 @@ def test_param_noise_step_trains_on_noisy_weights(monkeypatch):
         calls = []
         net_params = eng.net_params
 
-        def spy(s, train):
-            out = net_params(s, train)
+        def spy(s, train, *noise):
+            out = net_params(s, train, *noise)
             calls.append((train, {v.dtype for v in out.values()}))
             return out
 
