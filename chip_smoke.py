@@ -11,15 +11,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      flagship shapes beside the plain version's and those of the one
      PyTorch call that computes the same function (cuDNN's conv, transposed
      conv and weight gradient, each first held to the plain version); every
-     seam kernel also at seams that cut its tiles raggedly and at the
-     'library' / restoration 'kate' seams (C, F = 16..128), timed there;
+     seam kernel also at seams that cut its tiles raggedly, at the
+     'library' / restoration 'kate' seams (C, F = 16..128), timed there,
+     and at activation maximization's seams (LR 4 and 8, C = F = 128),
+     timed from a CUDA graph of launches;
      the data and weight gradients (whose reductions may be split) launched
      twice at every seam, the two results bitwise equal; the downsample
      kernel against its plain version at the SR geometries (x4 and x8 at HR
      384x576, a ragged batch, gauss12, box, preserve_size=False) and at the
      128-channel post-down of a 512^2 Skip's top scale, with times, and its
      bound at x4, x8 and 128 channels; the s2d pack (bitwise) at the
-     five 'kate' seam cotangents, NHWC and channel-planar, and ragged; the
+     five 'kate' seam cotangents, NHWC and channel-planar, ragged, and at
+     activation maximization's two (graph-timed); the
      3x3 and 1x1 weight-gradient kernels at the 'kate' shapes in bf16 and
      f32, NHWC and channel-planar, and at ragged and narrow shapes,
      launched twice and bitwise equal, with times beside their plain
@@ -47,9 +50,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      32 channels) at 512^2, bf16 and f32, every weight gradient from the
      kernels.
      Launch counters, set to 0 just before each fit and read just after
-     it, must equal what the model implies: every step went through the
-     kernels (a capture launches nothing; each replay counts the captured
-     step's launches);
+     it, must equal what the model implies (a Skip's fused seams counted
+     as Skip.forward decides them, fused_scales): every step went through
+     the kernels (a capture launches nothing; each replay counts the
+     captured step's launches);
   6. no host sync: three more eager steps per dtype of the flagship, in
      bf16 with a jitter schedule and with SGD, of the SR (x4, and x8 in
      bf16) and inpainting 'kate' fits (weight-gradient kernels and weight
@@ -73,7 +77,23 @@ Phases, each of which raises on failure (exit code 1, no result line):
      warm-up steps (graphed), then 10 eager L-BFGS steps: the loss falls
      and is finite, and the seam kernels' launches are what the warm-up,
      the value-and-gradient evaluations and the render imply; evaluations
-     and eager ms a step.
+     and eager ms a step;
+ 12. [backbones] AlexNet-caffe (227^2), VGG19, VGG16 and the modified
+     VGG19 (224^2) at full width with seeded random weights, card against
+     CPU, TF32 off: the deepest conv or pool tap and the fc taps, and the
+     gradient of the deepest tap's sum with respect to the image;
+ 13. [fi] feature inversion through run_task, 30 graphed steps, bf16 and
+     f32: AlexNet fc6 at 227^2 (the notebook's recipe) and a Gram-matrix
+     match at VGG19 conv3_1 at 224^2, the generator at 256^2, on a
+     synthetic numpy image: loss falling, the render the classifier's crop,
+     no seam launch (zero padding fuses none);
+ 14. [am] activation maximization through run_task, 30 graphed steps, bf16
+     and f32, the recipe's jitter and weight jitter: AlexNet conv4 map 2
+     ('maximize') and fc8 ('am_match', lr 1e-2): loss falling, the render
+     the crop, K1 = 2 x 31 and K2, K3, K4 = 2 x 30 launches;
+ 15. [cli] `dip_tpu_torch.cli.main(["fit", "--task", "activation_max",
+     "--num-iter", "30", "--log-every", "10"])` in this process, on its
+     default device: returns 0, three falling loss lines, exact launches.
 The last three lines are the card line, a JSON object of the kernels (each
 with its launches on a main path, error, times, and the bound of this
 run's shapes on an H100: bytes at 3.35 TB/s against operations at 989
@@ -114,6 +134,9 @@ FWD_RAGGED = [(1, 33, 47, 72, 40), (3, 9, 7, 24, 12), (2, 7, 9, 5, 3)]
 # their 128-channel scales, (N, h, w, C, F)
 LIBRARY_SEAMS = [(1, 256, 256, 16, 16), (1, 128, 128, 32, 16), (1, 64, 64, 64, 32),
                  (1, 32, 32, 128, 64)]
+# activation maximization's seams: the inversion net at 256^2 with
+# reflection padding fuses its two deepest decoder scales, LR 4 and 8
+AM_SEAMS = [(1, h, h, 128, 128) for h in (4, 8)]
 # the H100 SXM's dense peaks (NVIDIA's data sheet): the least time of a
 # kernel is the larger of its bytes over the memory rate and its operations
 # over the rate of their type
@@ -140,6 +163,7 @@ WGRAD = {"wgrad3x3_s1": (WGRAD_SOURCES[torch.bfloat16], "dip_tpu/ops/pallas_wgra
          "wgrad1x1": (WGRAD_SOURCES[torch.bfloat16], "dip_tpu/ops/pallas_wgrad.py:210")}
 # the seam cotangents of inpainting 'kate' at 512^2, (N, 2h, 2w, 128)
 KATE_DZ = [(1, 2 * h, 2 * h, 128) for h in (16, 32, 64, 128, 256)]
+AM_DZ = [(1, 2 * h, 2 * h, 128) for _, h, _, _, _ in AM_SEAMS]
 S2D_RAGGED = [(2, 12, 20, 24), (1, 6, 10, 5)]
 # weight gradients against their plain versions, max-normalised: f32 is
 # true f32 on both sides (sums in another order); bf16 takes the same bf16
@@ -360,8 +384,9 @@ def phase_kernel_parity(dev: torch.device) -> dict:
     # (shape, kernels held, timed): every kernel at the flagship and ragged
     # seams, at the seams that cut their tiles and at the 'library' seams;
     # timed at all but the ragged ones
-    cases = [(s, tuple(KERNELS), s in FLAGSHIP_SEAMS + LIBRARY_SEAMS)
-             for s in FLAGSHIP_SEAMS + [RAGGED_SEAM] + FWD_RAGGED + LIBRARY_SEAMS]
+    timed_seams = FLAGSHIP_SEAMS + LIBRARY_SEAMS + AM_SEAMS
+    cases = [(s, tuple(KERNELS), s in timed_seams)
+             for s in FLAGSHIP_SEAMS + [RAGGED_SEAM] + FWD_RAGGED + LIBRARY_SEAMS + AM_SEAMS]
     for dtype in (torch.bfloat16, torch.float32):
         for (n, h, w, c, f), names, timed in cases:
             xp = torch.randn((n, h + 2, w + 2, c), generator=gen, device=dev).to(dtype)
@@ -386,12 +411,17 @@ def phase_kernel_parity(dev: torch.device) -> dict:
                 line = (f"[parity] {name:9s} {str(dtype)[6:]:8s} N={n} h={h} w={w} C={c} "
                         f"F={f}: rel {rel:.2e} abs {abs_err:.2e}, library rel {lib_rel:.2e}")
                 if timed:
-                    reps = 20 if h <= 64 else 5
-                    ms, plain_ms = time_ms(kern, reps), time_ms(plain, reps)
-                    lib_ms = time_ms(library[name], reps)
+                    # the activation-maximization seams' launches are shorter
+                    # than the host's cost of one: timed from a CUDA graph
+                    small = (n, h, w, c, f) in AM_SEAMS
+                    reps = 50 if small else 20 if h <= 64 else 5
+                    timer = graph_ms if small else time_ms
+                    ms, plain_ms = timer(kern, reps), timer(plain, reps)
+                    lib_ms = timer(library[name], reps)
                     bound_ms, by = seam_bound(name, n, h, w, c, f, dtype)
                     line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                             f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+                             f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})"
+                             + (" [graph-timed]" if small else ""))
                     if (n, h, w, c, f) == FLAGSHIP_SEAMS[-1] and dtype == torch.bfloat16:
                         stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                            bound_ms=bound_ms, bound_by=by)
@@ -498,7 +528,7 @@ def phase_s2d_parity(dev: torch.device) -> dict:
 
     stats = {"max_abs_err": 0.0}
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = [(shape, d, "nhwc") for shape in KATE_DZ + S2D_RAGGED
+    cases = [(shape, d, "nhwc") for shape in KATE_DZ + S2D_RAGGED + AM_DZ
              for d in (torch.float32, torch.bfloat16)]
     cases += [(KATE_DZ[-1], d, "planar") for d in (torch.float32, torch.bfloat16)]
     cases += [(S2D_RAGGED[0], torch.bfloat16, "planar")]
@@ -512,11 +542,16 @@ def phase_s2d_parity(dev: torch.device) -> dict:
         _, abs_err = rel_err(got, want)
         line = (f"[parity] s2d_pack {str(dtype)[6:]:8s}->bf16 {layout:6s} {tuple(shape)}: "
                 f"abs {abs_err:.2e}")
-        if shape[1] >= 256:
-            reps = 20 if shape[1] <= 256 else 10
-            ms = time_ms(lambda: S.s2d_pack(dz, torch.bfloat16), reps)
-            plain_ms = time_ms(lambda: S.s2d_pack_plain(dz, torch.bfloat16), reps)
+        if shape[1] >= 256 or shape in AM_DZ:
+            small = shape in AM_DZ  # timed from a CUDA graph, as the AM seams
+            reps = 50 if small else 20 if shape[1] <= 256 else 10
+            timer = graph_ms if small else time_ms
+            ms = timer(lambda: S.s2d_pack(dz, torch.bfloat16), reps)
+            plain_ms = timer(lambda: S.s2d_pack_plain(dz, torch.bfloat16), reps)
             line += f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            if small:
+                b_ms, b_by = bound(0.0, "bf16", (dz.element_size() + 2) * dz.numel())
+                line += f", bound {b_ms:.5f} ms ({b_by}) [graph-timed]"
             if shape == KATE_DZ[-1] and dtype == torch.bfloat16 and layout == "nhwc":
                 # a pure permutation: bytes only. pixel_unshuffle orders the
                 # channels (c, p, q), not (p, q, c), so no one call computes it
@@ -797,6 +832,9 @@ def wgrad_per_step(model) -> tuple[int, int]:
     from dip_tpu_torch.models import Skip
     from dip_tpu_torch.models.blocks import Conv
 
+    mode = model.conv_wgrad
+    if mode == "off":
+        return 0, 0
     convs = [m for m in model.modules() if isinstance(m, Conv)]
     if isinstance(model, Skip):
         if any(k != 3 for k in model.k_up) or any(m not in ("nearest", "bilinear")
@@ -812,21 +850,63 @@ def wgrad_per_step(model) -> tuple[int, int]:
                      if not model.ch_skip[i]}
         convs = [c for c in convs if id(c) not in seam_only]
     runs = [c.kernel_size for c in convs if c.stride == 1 or c.post_down]
-    mode = model.conv_wgrad
     return (runs.count(3) if mode in ("3x3", "all") else 0,
             runs.count(1) if mode in ("1x1", "all") else 0)
 
 
-def path_launches(model, steps: int, downsample_per_step: int = 0) -> dict:
-    """What a `steps`-step fit and its render launch: each of a Skip's
-    seams runs fwd (or fwd_carry where a skip branch hands it its carry),
-    the s2d pack of dz, dgrad and wgrad a step, and fwd once more in the
-    render (the zoo's other nets have no seam); the weight-gradient
-    kernels as wgrad_per_step says."""
+def input_size(spec) -> tuple[int, int]:
+    """The (h, w) of the fit's z."""
+    return tuple(spec.spatial_size or spec.net_input.shape[1:3])
+
+
+def fused_scales(model, size: tuple[int, int]) -> list[bool]:
+    """Which decoder scales of a Skip take the fused seam on an input of
+    `size`, scale 0 first, decided as Skip.forward decides: up_conv on,
+    can_fuse_up2 of the scale's up mode, kernel, padding and LR size, and a
+    skip part (if the scale has one) of twice that size. The sizes come
+    from the encoder: a stride-2 conv of kernel k and padding (k-1)//2
+    gives (h + 2*((k-1)//2) - k)//2 + 1; with an 'avg' or 'max' post-down
+    the conv keeps h and the pool gives h//2. A scale that does not fuse
+    upsamples, and crops to its skip."""
+    from dip_tpu_torch.ops.up_conv import can_fuse_up2
+
+    n = len(model.ch_skip)
+    if not model.up_conv:
+        return [False] * n
+    h, w = size
+    skip_sizes = []
+    for i in range(n):
+        skip_sizes.append((h, w))
+        k, mode = model.k_down[i], model.down_modes[i]
+        if mode == "stride":
+            p = (k - 1) // 2
+            h, w = (h + 2 * p - k) // 2 + 1, (w + 2 * p - k) // 2 + 1
+        elif mode in ("avg", "max"):
+            h, w = h // 2, w // 2
+        else:
+            raise ValueError(f"the count does not follow downsample_mode {mode!r}")
+    fused = [False] * n
+    for i in reversed(range(n)):
+        up = (2 * h, 2 * w)
+        skip = skip_sizes[i] if model.ch_skip[i] else None
+        fused[i] = (can_fuse_up2(model.up_modes[i], model.k_up[i], 1, model.pad, h, w)
+                    and (skip is None or (model.fuse_concat and skip == up)))
+        h, w = up if skip is None else (min(up[0], skip[0]), min(up[1], skip[1]))
+    return fused
+
+
+def path_launches(spec, steps: int, downsample_per_step: int = 0) -> dict:
+    """What a `steps`-step fit of `spec` and its render launch: each fused
+    seam of a Skip (fused_scales) runs fwd (or fwd_carry where a skip
+    branch hands it its carry), the s2d pack of dz, dgrad and wgrad a
+    step, and fwd once more in the render (the zoo's other nets have no
+    seam); the weight-gradient kernels as wgrad_per_step says."""
     from dip_tpu_torch.models import Skip
 
-    n_seams = len(model.ch_skip) if isinstance(model, Skip) else 0
-    carried = sum(1 for c in model.ch_skip if c) if n_seams and model.seam_carry else 0
+    model = spec.model
+    fused = fused_scales(model, input_size(spec)) if isinstance(model, Skip) else []
+    n_seams = sum(fused)
+    carried = sum(1 for i, f in enumerate(fused) if f and model.ch_skip[i] and model.seam_carry)
     k3, k1 = wgrad_per_step(model)
     return {"fwd": (steps + 1) * (n_seams - carried), "fwd_carry": (steps + 1) * carried,
             "dgrad": steps * n_seams, "wgrad": steps * n_seams, "downsample":
@@ -858,7 +938,7 @@ def run_fit(spec, dev: torch.device, card: str, prefix: str, tag: str, want: dic
     metrics = " | ".join(f"{k} {v[0]:.2f} -> {v[-1]:.2f} dB" for k, v in hist.items()
                          if k.startswith("psnr"))
     log(f"[{prefix}] {tag}: {ips:.2f} it/s, {1e3 / ips:.2f} ms/step (steps {i0 + 1}-{i1}) "
-        f"| loss {loss[0]:.5f} -> {loss[-1]:.5f} | {metrics} | backtracked "
+        f"| loss {loss[0]:.6g} -> {loss[-1]:.6g} | {metrics} | backtracked "
         f"{int(hist['backtracked'].sum()) if 'backtracked' in hist else '-'} | peak "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, reserved "
         f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB | launches {delta} "
@@ -869,8 +949,9 @@ def run_fit(spec, dev: torch.device, card: str, prefix: str, tag: str, want: dic
         raise RuntimeError(f"loss not finite and falling: {loss}")
     if rising is not None and not hist[rising][-1] > hist[rising][0]:
         raise RuntimeError(f"{rising} not rising: {hist[rising]}")
-    size = spec.spatial_size or tuple(spec.net_input.shape[1:3])
-    want_shape = (1, *size, spec.model.num_output_channels)
+    want_shape = (1, *input_size(spec), spec.model.num_output_channels)
+    if spec.postprocess is not None:  # e.g. the classifier's crop of FI / AM
+        want_shape = tuple(spec.postprocess(torch.zeros(want_shape)).shape)
     if tuple(out.shape) != want_shape or not torch.isfinite(out).all():
         raise RuntimeError(f"bad output {tuple(out.shape)}, expected {want_shape}")
     return delta, ips
@@ -894,7 +975,7 @@ def phase_main_path(dev: torch.device, card: str) -> tuple[dict, float]:
     for cd in ("bfloat16", None):
         spec = _flagship_spec(cd)
         delta, ips = run_fit(spec, dev, card, "main", cd or "float32",
-                             path_launches(spec.model, MAIN_STEPS), None)
+                             path_launches(spec, MAIN_STEPS), None)
         total = {k: total.get(k, 0) + v for k, v in delta.items()}
         if cd is not None:
             bf16_ips = ips
@@ -941,7 +1022,7 @@ def phase_sr_path(dev: torch.device, card: str) -> dict:
         spec = _sr_spec(cd, carry, factor)
         tag = f"x{factor} {cd or 'float32'}" + (" carry" if carry else "")
         delta, _ = run_fit(spec, dev, card, "sr", tag,
-                           path_launches(spec.model, MAIN_STEPS, downsample_per_step=2),
+                           path_launches(spec, MAIN_STEPS, downsample_per_step=2),
                            "psnr_lr")
         total = {k: total.get(k, 0) + v for k, v in delta.items()}
     return total
@@ -992,7 +1073,7 @@ def phase_masked_paths(dev: torch.device, card: str) -> dict:
         tag = f"{task} {preset} {cd or 'float32'} conv_wgrad={wgrad}" + (
             " param_noise" if spec.cfg.param_noise else "")
         delta, _ = run_fit(spec, dev, card, "masked", tag,
-                           path_launches(spec.model, MAIN_STEPS), "psnr_track")
+                           path_launches(spec, MAIN_STEPS), "psnr_track")
         first = first or delta
     return first
 
@@ -1006,7 +1087,7 @@ def phase_zoo_paths(dev: torch.device, card: str) -> None:
         for cd in ("bfloat16", None):
             spec = _masked_spec("inpaint", "library", cd, "all", net_type=net_type)
             run_fit(spec, dev, card, "zoo", f"inpaint library {net_type} {cd or 'float32'} "
-                    f"conv_wgrad=all", path_launches(spec.model, MAIN_STEPS), "psnr_track")
+                    f"conv_wgrad=all", path_launches(spec, MAIN_STEPS), "psnr_track")
 
 
 def _steps_without_sync(spec, dev: torch.device, what: str) -> None:
@@ -1149,7 +1230,7 @@ def phase_queue(dev: torch.device, card: str, b1_ips: float) -> None:
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     delta = launch_counts()
-    want = {k: QUEUE_JOBS * v for k, v in path_launches(spec.model, MAIN_STEPS).items()}
+    want = {k: QUEUE_JOBS * v for k, v in path_launches(spec, MAIN_STEPS).items()}
     first = next(iter(spec.model.state_dict()))
     weights = [r[1].params[first] for r in res.values()]
     same = [(i, j) for i in range(len(weights)) for j in range(i) if torch.equal(weights[i],
@@ -1200,7 +1281,7 @@ def phase_flash(dev: torch.device, card: str) -> None:
     spec = dataclasses.replace(spec, cfg=dataclasses.replace(
         spec.cfg, compute_dtype="bfloat16", log_every=10))
     run_fit(spec, dev, card, "flash", f"flash/no-flash {FIT_SIZE}^2 bfloat16 up modes "
-            f"{spec.model.up_modes}", path_launches(spec.model, MAIN_STEPS), "psnr_track")
+            f"{spec.model.up_modes}", path_launches(spec, MAIN_STEPS), "psnr_track")
 
 
 def phase_checkpoint(dev: torch.device, card: str) -> None:
@@ -1254,7 +1335,7 @@ def phase_lbfgs(dev: torch.device, card: str) -> None:
                                     callback=lambda it, h, s: marks.append(time.perf_counter()))
         delta = launch_counts()
         evals = int(hist["evals"].sum())
-        want = path_launches(spec.model, LBFGS_WARMUP + evals)
+        want = path_launches(spec, LBFGS_WARMUP + evals)
         loss = hist["loss"]
         ms = (marks[-1] - marks[0]) * 1e3 / (len(marks) - 1)
         log(f"[lbfgs] flagship {cd or 'float32'}: {LBFGS_WARMUP} Adam warm-up steps, then "
@@ -1269,6 +1350,155 @@ def phase_lbfgs(dev: torch.device, card: str) -> None:
             raise RuntimeError(f"loss not finite and falling: {loss}")
         if state.step != LBFGS_WARMUP + LBFGS_STEPS or not torch.isfinite(out).all():
             raise RuntimeError(f"bad end of the L-BFGS fit: step {state.step}")
+
+
+# [backbones]: each backbone at its classifier size and full width, and the
+# taps held card against CPU: its deepest conv / pool tap and its fc taps
+BACKBONE_TAPS = {"alexnet_caffe": ("conv5", "fc6", "fc8"),
+                 "vgg19_caffe": ("relu4_4", "pool5", "fc6"),
+                 "vgg16_caffe": ("relu4_3", "pool5", "fc6"),
+                 "vgg19_pytorch_modified": ("relu4_4", "pool5", "fc6")}
+# [fi]: (backbone, taps, statistic): the notebook's recipe (AlexNet fc6),
+# and a Gram-matrix match at one VGG19 conv tap
+FI_FITS = [("alexnet_caffe", ("fc6",), "features"), ("vgg19_caffe", ("conv3_1",), "gram_matrix")]
+# [am]: (layer, unit): a conv map ('maximize', lr 1e-3) and a class logit
+# ('am_match', lr 1e-2), AlexNet
+AM_FITS = [("conv4", 2), ("fc8", 2)]
+
+
+def phase_backbones(dev: torch.device) -> None:
+    """[backbones] The four backbones at full width (AlexNet at 227^2, the
+    VGGs at 224^2) with seeded random weights, on the card against the
+    same net on the CPU, TF32 off: every tap of BACKBONE_TAPS on a
+    preprocessed random image, each tap's error over its largest value
+    within 2e-3 (phase 4's limit, max-normalised: caffe activations run to
+    the thousands); and the gradient of the deepest tap's sum with respect
+    to the image, held to the CPU's f64 gradient: the card's f32 within
+    2e-2 of the largest (phase 4's limit) beyond the CPU's own f32 error.
+    That gradient sums thousands of units' paths that mostly cancel, and
+    through VGG19 the CPU's f32 gradient is itself 3.9e-2 from f64. The
+    card in f64 is held to the CPU in f64 as well, taps and gradient within
+    1e-9: the device path's arithmetic apart from f32's conditioning."""
+    from dip_tpu_torch.fit.engine import disable_tf32, tf32_flags
+    from dip_tpu_torch.pretrained.backbones import (default_imsize, get_backbone,
+                                                    pytorch_preprocess, vgg_preprocess_caffe)
+
+    disable_tf32()
+    for name, taps in BACKBONE_TAPS.items():
+        size = default_imsize(name)
+        cpu = get_backbone(name)
+        cpu.reset_parameters(torch.Generator().manual_seed(6))
+        pre = pytorch_preprocess if name == "vgg19_pytorch_modified" else vgg_preprocess_caffe
+        img = torch.rand((1, size, size, 3), generator=torch.Generator().manual_seed(7))
+        outs, grads = [], []
+        for d, dt in (("cpu", torch.float32), ("cpu", torch.float64), (dev, torch.float32),
+                      (dev, torch.float64)):
+            model = copy.deepcopy(cpu).to(d, dt)
+            x = img.to(d, dt, copy=True).requires_grad_()
+            acts = model(pre(x), taps)
+            acts[taps[-1]].sum().backward()
+            outs.append({t: a.detach().cpu() for t, a in acts.items()})
+            grads.append(x.grad.cpu())
+            del model
+        torch.cuda.synchronize()
+        errs = {t: rel_err(outs[2][t], outs[0][t])[0] for t in taps}
+        g_cpu, _ = rel_err(grads[0].double(), grads[1])
+        g_card, _ = rel_err(grads[2].double(), grads[1])
+        f64 = max([rel_err(outs[3][t], outs[1][t])[0] for t in taps]
+                  + [rel_err(grads[3], grads[1])[0]])
+        log(f"[backbones] {name} {size}^2 (fc6 in {cpu.fc6.weight.shape[1]}): cuda vs cpu, "
+            f"max err / max: " + ", ".join(f"{t} {e:.2e}" for t, e in errs.items())
+            + f"; d sum({taps[-1]}) / d image against the cpu's f64: cuda f32 {g_card:.2e}, "
+            f"cpu f32 {g_cpu:.2e}; cuda f64 vs cpu f64, taps and gradient {f64:.2e} | "
+            f"{tf32_flags()}")
+        if max(errs.values()) > 2e-3 or g_card > g_cpu + 2e-2 or f64 > 1e-9:
+            raise RuntimeError(f"{name} on the card disagrees with the CPU")
+        del cpu, outs, grads
+
+
+def _with_cfg(spec, cd: str | None):
+    return dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, num_iter=MAIN_STEPS, compute_dtype=cd, log_every=10))
+
+
+def phase_fi(dev: torch.device, card: str) -> None:
+    """[fi] Feature inversion through run_task, MAIN_STEPS graphed steps,
+    bf16 and f32, each FI_FITS entry on a synthetic numpy content image
+    of the classifier's size, the generator at 256^2: the loss finite and
+    falling, the render the classifier's crop (227 or 224) and finite, and
+    no seam launch (the recipe's zero-padded net fuses no seam)."""
+    from dip_tpu_torch.data import synthetic_image
+    from dip_tpu_torch.tasks import feature_inversion
+
+    for backbone, layers, what in FI_FITS:
+        fi = feature_inversion.FeatureInversion(backbone, layers, what=what, device=dev)
+        content = synthetic_image("disks", fi.imsize)[None]
+        for cd in ("bfloat16", None):
+            spec = _with_cfg(fi.spec(content), cd)
+            want = path_launches(spec, MAIN_STEPS)
+            if any(want.values()):
+                raise RuntimeError(f"feature inversion's net should fuse no seam: {want}")
+            run_fit(spec, dev, card, "fi", f"{backbone} {'+'.join(layers)} {what} "
+                    f"{fi.imsize}^2 (net {fi.imsize_net}^2) {cd or 'float32'}", want, None)
+        del fi
+
+
+def am_spec(layer: str, idx: int, cd: str | None, dev: torch.device):
+    from dip_tpu_torch.tasks import activation_maximization
+
+    return _with_cfg(activation_maximization.task(layer=layer, map_idx=idx, device=dev), cd)
+
+
+def phase_am(dev: torch.device, card: str) -> None:
+    """[am] Activation maximization through run_task, MAIN_STEPS graphed
+    steps, bf16 and f32, with the recipe's jitter 0.03 and weight jitter,
+    AlexNet at 227^2 under the inversion net at 256^2 (reflection pad):
+    each AM_FITS entry's loss finite and falling, the render the crop and
+    finite, and the seam kernels' launches exact: its two deepest decoder
+    scales (LR 4 and 8, C = F = 128) fuse, so K1 = 2 x (steps + 1) and
+    K2, K3, K4 = 2 x steps."""
+    for layer, idx in AM_FITS:
+        for cd in ("bfloat16", None):
+            spec = am_spec(layer, idx, cd, dev)
+            want = path_launches(spec, MAIN_STEPS)
+            seams = {k: want[k] for k in ("fwd", "dgrad", "wgrad", "s2d_pack")}
+            if seams != {"fwd": 2 * (MAIN_STEPS + 1), "dgrad": 2 * MAIN_STEPS,
+                         "wgrad": 2 * MAIN_STEPS, "s2d_pack": 2 * MAIN_STEPS}:
+                raise RuntimeError(f"the AM net should fuse two seams: {want}")
+            run_fit(spec, dev, card, "am", f"alexnet {layer}[{idx}] {spec.name} lr "
+                    f"{spec.cfg.lr} {cd or 'float32'}", want, None)
+
+
+def phase_cli(dev: torch.device, card: str) -> None:
+    """[cli] `dip_tpu_torch.cli.main(["fit", "--task", "activation_max",
+    ...])` in this process on the card (its default device; no image, no
+    Pillow): it returns 0, prints MAIN_STEPS / 10 finite, falling loss
+    lines, and launches what the same spec implies."""
+    import io
+    import re
+
+    from dip_tpu_torch.cli.main import main as cli
+
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(["fit", "--task", "activation_max", "--num-iter", str(MAIN_STEPS),
+                  "--log-every", "10"])
+    delta = launch_counts()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[cli] {line}")
+    losses = [float(v) for v in re.findall(r"iter\s+\d+\s+loss (\S+)", text)]
+    want = path_launches(am_spec("conv4", 2, None, dev), MAIN_STEPS)
+    log(f"[cli] rc {rc} | losses {losses} | peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB | launches {delta} | card {card}")
+    if rc != 0 or len(losses) != MAIN_STEPS // 10 or not np.isfinite(losses).all():
+        raise RuntimeError(f"the CLI fit did not end well: rc {rc}, losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the CLI fit's loss did not fall: {losses}")
+    if delta != want:
+        raise RuntimeError(f"launch counts {delta} != {want}")
 
 
 def _entry(name: str, src_rep: tuple[str, str], launches: int, stats: dict) -> dict:
@@ -1304,6 +1534,10 @@ def main() -> int:
     phase_flash(dev, card)
     phase_checkpoint(dev, card)
     phase_lbfgs(dev, card)
+    phase_backbones(dev)
+    phase_fi(dev, card)
+    phase_am(dev, card)
+    phase_cli(dev, card)
     # each kernel's launches come from the main path that runs it: the
     # flagship fit for the seam's fwd, dgrad and wgrad and the s2d pack,
     # the SR fits for the carry-in forward and the downsample, the

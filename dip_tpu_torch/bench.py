@@ -18,13 +18,17 @@ no CPU fallback: without a card it raises.
     python -m dip_tpu_torch.bench --profile 5   # kernel tables per dtype
     python -m dip_tpu_torch.bench --profile 5 --fit kate [--conv-wgrad 3x3]
     python -m dip_tpu_torch.bench --profile 5 --fit library-unet --conv-wgrad all
+    python -m dip_tpu_torch.bench --profile 5 --fit am-alexnet
 
 `--profile` profiles a graphed chunk and then as many eager steps, and
 prints each window's wall and kernel ms a step and the device's idle
 share. `--fit kate` profiles inpainting 'kate' (128-channel skips, nearest
 up, masked MSE) on a synthetic image and mask of the same size in place of
 the flagship, `--fit library-unet` and `library-resnet` inpainting
-'library' with its UNet or its ResNet; `--conv-wgrad` routes their conv
+'library' with its UNet or its ResNet, `--fit fi-alexnet` feature
+inversion at AlexNet fc6 and `am-alexnet` activation maximization at
+AlexNet conv4 (227^2 under a generator at 256^2, whatever --size says);
+`--conv-wgrad` routes their conv
 weight gradients through the port's kernels (the model's `conv_wgrad`,
 'off' by default). The bf16 3x3
 and 1x1 gradients (K5, K6) share `up_conv_wgrad_mma_kernel` and its sum
@@ -135,6 +139,36 @@ def _kate(size: int, compute_dtype: str | None, device: str, conv_wgrad: str = "
     spec = dataclasses.replace(spec, cfg=dataclasses.replace(
         spec.cfg, compute_dtype=compute_dtype, log_every=steps))
     return start_task(spec, 0, device=_cuda(device))
+
+
+# the feature-inversion and activation-maximization fits --profile runs, at
+# their recipes' sizes: AlexNet at 227^2 under the inversion net at 256^2
+PRETRAINED_FITS = ("fi-alexnet", "am-alexnet")
+
+
+def _pretrained(fit: str, compute_dtype: str | None, device: str, steps: int):
+    """(engine, state, aux) of feature inversion at AlexNet fc6 (a
+    synthetic content image) or activation maximization at AlexNet conv4
+    map 2, seeded random backbone weights, on a CUDA device, in chunks of
+    `steps`."""
+    import dataclasses
+
+    from dip_tpu_torch.tasks.base import start_task
+
+    dev = _cuda(device)
+    if fit == "fi-alexnet":
+        from dip_tpu_torch.data import synthetic_image
+        from dip_tpu_torch.tasks import feature_inversion
+
+        fi = feature_inversion.FeatureInversion(device=dev)
+        spec = fi.spec(synthetic_image("disks", fi.imsize)[None])
+    else:
+        from dip_tpu_torch.tasks import activation_maximization
+
+        spec = activation_maximization.task(device=dev)
+    spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, compute_dtype=compute_dtype, log_every=steps))
+    return start_task(spec, 0, device=dev)
 
 
 def flagship_spec(size: int, iters: int, compute_dtype: str | None, target: torch.Tensor):
@@ -322,10 +356,13 @@ def _profile_window(prof_steps, steps: int, what: str, eng) -> dict:
 def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
             device: str = "cuda", fit: str = "flagship", conv_wgrad: str = "off") -> dict:
     """The flagship (or an inpainting fit of MASKED_FITS, with
-    `conv_wgrad`) under torch.profiler, after a warm chunk and 10 warm eager
-    steps: a graphed chunk of `steps` replays, then `steps` eager steps."""
+    `conv_wgrad`, or a fit of PRETRAINED_FITS at its recipe's size) under
+    torch.profiler, after a warm chunk and 10 warm eager steps: a graphed
+    chunk of `steps` replays, then `steps` eager steps."""
     if fit in MASKED_FITS:
         eng, state, target = _kate(size, compute_dtype, device, conv_wgrad, steps, fit)
+    elif fit in PRETRAINED_FITS:
+        eng, state, target = _pretrained(fit, compute_dtype, device, steps)
     else:
         eng, state, target = _flagship(size, steps, compute_dtype, device)
 
@@ -356,8 +393,8 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="instead of timing, profile STEPS steps per dtype")
-    ap.add_argument("--fit", choices=("flagship", *MASKED_FITS), default="flagship",
-                    help="the fit --profile runs")
+    ap.add_argument("--fit", choices=("flagship", *MASKED_FITS, *PRETRAINED_FITS),
+                    default="flagship", help="the fit --profile runs")
     ap.add_argument("--conv-wgrad", default="off", choices=CONV_WGRAD,
                     help="an inpainting --fit: route these conv weight gradients through "
                          "the kernels")

@@ -14,6 +14,11 @@ from HWIO to OIHW; a transposed conv's HWIO kernel, which flax applies
 unflipped, goes to (in, out, kh, kw) flipped in both spatial axes, the
 orientation of torch's conv_transpose2d.
 
+The frozen backbones (pretrained/backbones.py) name their layers as the
+flax modules do, `conv1_1` ... `fc8`, each flax layer holding {'kernel',
+'bias'} itself: conv kernels go from HWIO (grouped: (kh, kw, Cin/groups,
+Cout)) to OIHW, Dense kernels from (in, out) to (out, in).
+
 Without a model the functions take the skip net's flat layout, `Conv_{i}`
 <-> `convs.{i}` and `TrainBatchNorm_{i}` <-> `bns.{i}`, which is what
 flax_paths gives for a Skip. It stays for the callers that hold a skip
@@ -39,6 +44,7 @@ import torch
 import torch.nn as nn
 
 from dip_tpu_torch.models.blocks import Conv, ConvTranspose, TrainBatchNorm
+from dip_tpu_torch.pretrained.backbones import Backbone, BackboneConv, BackboneDense
 
 _FLAX_KEY = re.compile(r"(Conv|TrainBatchNorm)_(\d+)$")
 _PORT_KEY = re.compile(r"(convs|bns)\.(\d+)\.(weight|bias)$")
@@ -91,7 +97,9 @@ def _flax_leaves(kind: type, sub: Mapping) -> dict[str, torch.Tensor]:
     class `kind`, by name."""
     if kind is TrainBatchNorm:
         return {"weight": _t(_np(sub["scale"])), "bias": _t(_np(sub["bias"]))}
-    leaf = sub[kind.__name__ + "_0"]
+    if kind is BackboneDense:
+        return {"weight": _t(_np(sub["kernel"]).T), "bias": _t(_np(sub["bias"]))}
+    leaf = sub if kind is BackboneConv else sub[kind.__name__ + "_0"]
     kernel = _np(leaf["kernel"])
     if kind is ConvTranspose:
         kernel = kernel[::-1, ::-1].transpose(2, 3, 0, 1)
@@ -108,18 +116,23 @@ def _port_leaves(kind: type, tensors: Mapping[str, torch.Tensor]) -> dict:
     a = {k: t.detach().cpu().to(torch.float32).numpy() for k, t in tensors.items()}
     if kind is TrainBatchNorm:
         return {"scale": a["weight"].copy(), "bias": a["bias"].copy()}
+    if kind is BackboneDense:
+        return {"kernel": np.array(a["weight"].T, order="C"), "bias": a["bias"].copy()}
     w = a["weight"]
     kernel = (w.transpose(2, 3, 0, 1)[::-1, ::-1] if kind is ConvTranspose
               else w.transpose(2, 3, 1, 0))
     leaf = {"kernel": np.array(kernel, order="C")}
     if "bias" in a:
         leaf["bias"] = a["bias"].copy()
-    return {kind.__name__ + "_0": leaf}
+    return leaf if kind is BackboneConv else {kind.__name__ + "_0": leaf}
 
 
 def _layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...], type]]:
     """state_dict prefix -> (flax path, class) of each parameter-holding
-    module of `model`."""
+    module of `model` (a backbone's layers by their own names)."""
+    if isinstance(model, Backbone):
+        return {name: ((name,), type(m)) for name, m in model.named_children()
+                if isinstance(m, (BackboneConv, BackboneDense))}
     return {prefix: (path, type(m)) for prefix, (path, m) in flax_paths(model).items()}
 
 

@@ -173,7 +173,11 @@ def test_port_imports_no_jax():
             "dip_tpu_torch.fit.checkpoint, dip_tpu_torch.parallel, dip_tpu_torch.tasks, "
             "dip_tpu_torch.tasks.flash_no_flash, dip_tpu_torch.ops.launches, "
             "dip_tpu_torch.fit.lbfgs, dip_tpu_torch.models.unet, dip_tpu_torch.models.resnet, "
-            "dip_tpu_torch.models.texture_nets, dip_tpu_torch.models.dcgan; "
+            "dip_tpu_torch.models.texture_nets, dip_tpu_torch.models.dcgan, "
+            "dip_tpu_torch.pretrained, dip_tpu_torch.pretrained.perceptual, "
+            "dip_tpu_torch.tasks.feature_inversion, dip_tpu_torch.tasks.activation_maximization, "
+            "dip_tpu_torch.cli.main, dip_tpu_torch.data.imagenet_classes, "
+            "dip_tpu_torch.utils.profiling, dip_tpu_torch.__main__; "
             "assert 'jax' not in sys.modules and 'flax' not in sys.modules, "
             "sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -14,8 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from chip_smoke import (FLAGSHIP_SEAMS, FWD_RAGGED, RAGGED_SEAM, TOL as CARD_TOL,  # noqa: E402
-                        LIBRARY_SEAMS as CARD_LIBRARY_SEAMS, library_calls, seam_bound)
+from chip_smoke import (AM_SEAMS, FLAGSHIP_SEAMS, FWD_RAGGED, RAGGED_SEAM,  # noqa: E402
+                        TOL as CARD_TOL, LIBRARY_SEAMS as CARD_LIBRARY_SEAMS, library_calls,
+                        seam_bound)
 from dip_tpu_torch.ops import hopper_up_conv as H  # noqa: E402
 from dip_tpu_torch.ops import hopper_wgrad as W  # noqa: E402
 
@@ -265,7 +266,8 @@ def test_seam_bounds_at_the_top_flagship_seam():
     assert by == "bytes"
 
 
-@pytest.mark.parametrize("seam", FLAGSHIP_SEAMS + [RAGGED_SEAM] + FWD_RAGGED + CARD_LIBRARY_SEAMS)
+@pytest.mark.parametrize("seam", FLAGSHIP_SEAMS + [RAGGED_SEAM] + FWD_RAGGED + CARD_LIBRARY_SEAMS
+                         + AM_SEAMS)
 def test_wgrad_split_plan(seam):
     """wgrad_plan, which sizes every K3 launch, at the seams chip_smoke.py
     holds the kernel to: its splits sum the N*h*w pixels once, each split
@@ -294,7 +296,8 @@ def test_wgrad_split_plan(seam):
         assert plan.grid[0] * plan.grid[1] >= 2 * 132
 
 
-@pytest.mark.parametrize("seam", FLAGSHIP_SEAMS + [RAGGED_SEAM] + FWD_RAGGED + CARD_LIBRARY_SEAMS)
+@pytest.mark.parametrize("seam", FLAGSHIP_SEAMS + [RAGGED_SEAM] + FWD_RAGGED + CARD_LIBRARY_SEAMS
+                         + AM_SEAMS)
 def test_wgrad_plan_is_the_3x3_plan_over_4f_columns(seam):
     """K3's plan is the plan of the kernel it shares with the bf16 K5, over
     the seam's 4F phase columns: every K3 launch is sized as before."""
@@ -353,7 +356,7 @@ def test_wgrad_plain_is_the_3x3_weight_gradient(seam):
 # the seams chip_smoke.py holds K2 to, and one whose single split fills
 # 1.94 waves of two blocks an SM (512 blocks)
 @pytest.mark.parametrize("seam", FLAGSHIP_SEAMS + [RAGGED_SEAM] + FWD_RAGGED + CARD_LIBRARY_SEAMS
-                         + [(1, 254, 254, 128, 128)])
+                         + AM_SEAMS + [(1, 254, 254, 128, 128)])
 def test_dgrad_split_plan(seam):
     """dgrad_plan, which sizes every K2 launch, at the seams chip_smoke.py
     holds the kernel to: its splits run the 9 * ceil(4F/64) steps once, in
