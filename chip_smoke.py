@@ -14,7 +14,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
      seam kernel also at seams that cut its tiles raggedly, at the
      'library' / restoration 'kate' seams (C, F = 16..128), timed there,
      and at activation maximization's seams (LR 4 and 8, C = F = 128),
-     timed from a CUDA graph of launches;
+     timed from a CUDA graph of launches; the fit axis of fwd, fwd with
+     the carry-in, dgrad and wgrad (BatchEngine's launches: B fits' e,
+     each fit's images through its own) at 8 fits of LR 32^2 and 2 fits of
+     the top seam, each fit's slice against its plain version and bitwise
+     the single-fit launch's, the B = 1 form bitwise today's, graph-timed
+     beside B x one fit and the grouped library call;
      the data and weight gradients (whose reductions may be split) launched
      twice at every seam, the two results bitwise equal; the downsample
      kernel against its plain version at the SR geometries (x4 and x8 at HR
@@ -67,35 +72,50 @@ Phases, each of which raises on failure (exit code 1, no result line):
      chunks of 10, each on its own stream: losses finite and falling,
      params different across seeds, launch counts 8 x the fit's; the
      aggregate it/s beside the graphed b1 fit's, and the peak memory;
-  9. [flash] flash/no-flash at 512^2 in bf16 (nearest up at the two top
+  9. [batch] BatchEngine over 8 flagship fits (Skip 5x128, bilinear seams)
+     in bf16 and f32 at 512^2 and at 64^2 (with the carry-in), 30 graphed
+     steps: losses falling, renders finite, the launches one fit's (each
+     seam kernel once a seam for all 8), the fit-iterations/s beside a
+     graphed b1 fit and the FitQueue b8; under deterministic cuDNN one
+     batched step against 8 Engine steps from the same seeds (loss and
+     gradients per fit at stated limits) and 10 eager batched steps against
+     run() bit for bit; 3 batched steps with no host sync;
+ 10. [fleet] eval_sr_dataset_sharded over make_mesh() on three synthetic
+     PNGs of two sizes, x4, under deterministic cuDNN: names, finite
+     scores, one BatchEngine program per shape group, scores within 0.1 dB
+     of eval_sr_dataset's with the same seeds after one step and within
+     3 dB (its own run-to-run spread) after 40;
+ 11. [flash] flash/no-flash at 512^2 in bf16 (nearest up at the two top
      seams, bilinear below): loss falling, psnr_track rising, launch
      counts;
- 10. [ckpt] the flagship in bf16 under deterministic cuDNN: 10 steps,
+ 12. [ckpt] the flagship in bf16 under deterministic cuDNN: 10 steps,
      saved, restored into a fresh state, 10 more, against 20
      uninterrupted, bit for bit;
- 11. [lbfgs] the flagship with optimizer 'lbfgs' in bf16 and f32: 10 Adam
+ 13. [lbfgs] the flagship with optimizer 'lbfgs' in bf16 and f32: 10 Adam
      warm-up steps (graphed), then 10 eager L-BFGS steps: the loss falls
      and is finite, and the seam kernels' launches are what the warm-up,
      the value-and-gradient evaluations and the render imply; evaluations
      and eager ms a step;
- 12. [backbones] AlexNet-caffe (227^2), VGG19, VGG16 and the modified
+ 14. [backbones] AlexNet-caffe (227^2), VGG19, VGG16 and the modified
      VGG19 (224^2) at full width with seeded random weights, card against
      CPU, TF32 off: the deepest conv or pool tap and the fc taps, and the
      gradient of the deepest tap's sum with respect to the image;
- 13. [fi] feature inversion through run_task, 30 graphed steps, bf16 and
+ 15. [fi] feature inversion through run_task, 30 graphed steps, bf16 and
      f32: AlexNet fc6 at 227^2 (the notebook's recipe) and a Gram-matrix
      match at VGG19 conv3_1 at 224^2, the generator at 256^2, on a
      synthetic numpy image: loss falling, the render the classifier's crop,
      no seam launch (zero padding fuses none);
- 14. [am] activation maximization through run_task, 30 graphed steps, bf16
+ 16. [am] activation maximization through run_task, 30 graphed steps, bf16
      and f32, the recipe's jitter and weight jitter: AlexNet conv4 map 2
      ('maximize') and fc8 ('am_match', lr 1e-2): loss falling, the render
      the crop, K1 = 2 x 31 and K2, K3, K4 = 2 x 30 launches;
- 15. [cli] `dip_tpu_torch.cli.main(["fit", "--task", "activation_max",
+ 17. [cli] `dip_tpu_torch.cli.main(["fit", "--task", "activation_max",
      "--num-iter", "30", "--log-every", "10"])` in this process, on its
-     default device: returns 0, three falling loss lines, exact launches.
+     default device: returns 0, three falling loss lines, exact launches;
+     then `eval-sr --fleet` on the [fleet] images: rc 0, each score finite.
 The last three lines are the card line, a JSON object of the kernels (each
-with its launches on a main path, error, times, and the bound of this
+with its launches on a main path, the seam kernels' fit-axis forms as rows
+of their own with their launches in [batch], error, times, and the bound of this
 run's shapes on an H100: bytes at 3.35 TB/s against operations at 989
 TFLOP/s bf16 or 67 TFLOP/s f32 FMA; the weight gradients' rows give their
 bf16 figures as the row's own, their f32 figures under "f32" and each
@@ -137,6 +157,9 @@ LIBRARY_SEAMS = [(1, 256, 256, 16, 16), (1, 128, 128, 32, 16), (1, 64, 64, 64, 3
 # activation maximization's seams: the inversion net at 256^2 with
 # reflection padding fuses its two deepest decoder scales, LR 4 and 8
 AM_SEAMS = [(1, h, h, 128, 128) for h in (4, 8)]
+# the seam kernels' fit axis, (B, N, h, w, C, F): 8 fits at LR 32^2, and 2
+# fits at the flagship's top seam
+FIT_SEAMS = [(8, 1, 32, 32, 128, 128), (2, 1, 256, 256, 128, 128)]
 # the H100 SXM's dense peaks (NVIDIA's data sheet): the least time of a
 # kernel is the larger of its bytes over the memory rate and its operations
 # over the rate of their type
@@ -146,6 +169,33 @@ MAIN_STEPS = 30
 GRAPH_STEPS = 10  # eager against graphed
 LBFGS_WARMUP, LBFGS_STEPS = 10, 10
 QUEUE_JOBS = 8
+BATCH_FITS = 8  # [batch]
+# [batch]: one batched step against the fits' own Engine steps, deterministic
+# cuDNN: the loss's relative error, and every gradient's error over the
+# fit's largest. Only the arithmetic's order differs (grouped cuDNN
+# convolutions, reductions over a vmapped layout), but BN's one-pass moments
+# (E[x^2] - mean^2) amplify an order difference by mean^2 / var, and the
+# seam rounds its cotangent to bf16, where a last-bit difference moves an
+# element by 2^-8 of itself: 2 flagship fits at 128^2 and 256^2 on the CPU
+# in f32 read 6.7e-3 to 3.1e-2 (2.0e-3 to 6.1e-3 with the seam off, 7.7e-6
+# for a 2-scale 8-channel net), the losses within 1.1e-4. bf16 rounds every
+# activation too. A fit that read another fit's data would be off by O(1).
+# The biases of the convs that feed a BN have a gradient of exactly zero in
+# exact arithmetic (BN takes the mean out): what either side computes there
+# is rounding noise, in bf16 up to 0.68 of the fit's largest gradient (read
+# on an H100: PERF.md §6), so they are left out of the comparison.
+BATCH_LOSS_TOL = {"bfloat16": 1e-2, None: 1e-3}
+BATCH_GRAD_TOL = {"bfloat16": 1e-1, None: 5e-2}
+# [fleet]: HR sizes (multiples of 32) by name, two shapes; x4. Under
+# deterministic cuDNN the fleet's scores after one step within FLEET_DB_1
+# of the sequential evaluation's (the fits start alike: the batched
+# forward's last bits alone), and after FLEET_STEPS within FLEET_DB, the
+# sequential evaluation's own spread: at 40 steps on these images two of
+# its runs with cuDNN's default algorithms read up to 2.9 dB apart (on an
+# H100: PERF.md §6), the fits being that sensitive to the last bits
+FLEET_IMAGES = {"a": (128, 128), "b": (128, 192), "c": (128, 128)}
+FLEET_STEPS = 40
+FLEET_DB_1, FLEET_DB = 0.1, 3.0
 KERNELS = {
     "fwd": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
     "fwd_carry": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
@@ -292,13 +342,14 @@ def bound(ops: float, peak: str, nbytes: float) -> tuple[float, str]:
 
 
 def seam_bound(name: str, n: int, h: int, w: int, c: int, f: int,
-               dtype: torch.dtype) -> tuple[float, str]:
+               dtype: torch.dtype, fits: int = 1) -> tuple[float, str]:
     """The bound of a seam kernel at (N, h, w, C, F): 2*N*h*w*9*C*4F
     tensor-core operations (bf16 in both modes) against each input read and
-    each output written once, xp, out and de in `dtype`, dzq bf16."""
+    each output written once, xp, out and de in `dtype`, dzq bf16; with the
+    fit axis, N counts every fit's images and e (or de) is `fits` kernels."""
     s = torch.finfo(dtype).bits // 8
     xp = n * (h + 2) * (w + 2) * c * s
-    e = 9 * c * 4 * f * s
+    e = fits * 9 * c * 4 * f * s
     dzq = n * h * w * 4 * f * 2
     z = n * 4 * h * w * f * s
     nbytes = {"fwd": xp + e + z, "fwd_carry": xp + e + 2 * z, "dgrad": dzq + e + xp,
@@ -432,6 +483,118 @@ def phase_kernel_parity(dev: torch.device) -> dict:
                                        f"{TOL[dtype]}")
                 del got, want, lib
             del xp, e, dzq, carry, pairs, library
+    return stats
+
+
+def fits_library_calls(xp, e, dzq, carry, dtype: torch.dtype, fits: int) -> dict:
+    """Each seam kernel's fit-axis form as ONE grouped PyTorch call (groups
+    = fits: fit b's channels through fit b's weights), on inputs prepared
+    outside any timed region, with a map back to the kernel's layout:
+    name -> (call, to the kernel's layout)."""
+    g, hp, wp, c = xp.shape
+    n, f4 = g // fits, e.shape[-1]
+    xr, er, dzr = (t.to(torch.bfloat16).to(dtype) for t in (xp, e, dzq))
+
+    def grouped(t):  # (B*N, H, W, K) -> (N, B*K, H, W)
+        return t.reshape(fits, n, *t.shape[1:]).permute(1, 0, 4, 2, 3).reshape(
+            n, fits * t.shape[3], t.shape[1], t.shape[2]).contiguous()
+
+    def back(t):  # (N, B*K, H, W) -> (B*N, H, W, K)
+        k = t.shape[1] // fits
+        return t.reshape(n, fits, k, *t.shape[2:]).permute(1, 0, 3, 4, 2).reshape(
+            fits * n, t.shape[2], t.shape[3], k)
+
+    ws = [library_weights(er[b]) for b in range(fits)]
+    w_fwd = torch.cat([w for w, _ in ws])
+    w_nat = torch.cat([w for _, w in ws])
+    xg, dzg, cg = grouped(xr), grouped(dzr), grouped(carry)
+    size = (fits * f4, c, 3, 3)
+    return {
+        "fwd": (lambda: F.pixel_shuffle(F.conv2d(xg, w_fwd, groups=fits), 2), back),
+        "fwd_carry": (lambda: F.pixel_shuffle(F.conv2d(xg, w_fwd, groups=fits), 2) + cg, back),
+        "dgrad": (lambda: F.conv_transpose2d(dzg, w_nat, groups=fits), back),
+        "wgrad": (lambda: torch.nn.grad.conv2d_weight(xg, size, dzg, groups=fits),
+                  lambda t: t.reshape(fits, f4, c, 3, 3).permute(0, 3, 4, 2, 1)),
+    }
+
+
+def phase_fit_axis_parity(dev: torch.device) -> dict:
+    """The seam kernels' fit axis (BatchEngine's launches) at FIT_SEAMS, in
+    bf16 and f32: B fits' xp, e (B,3,3,C,4F), dzq and carry; each fit's
+    slice of K1, K1c, K2 and K3 against the plain version of that fit alone
+    at TOL, and bitwise equal to the single-fit launch on that fit's own
+    tensors (a fit's bits do not depend on B); at B = 1 (e (1,3,3,C,4F)),
+    every kernel bitwise equal to today's launch; K2 and K3 launched twice,
+    bitwise equal. Graph-timed: the B fits' launch against B x the
+    single-fit launch, and the grouped library call (groups = B). Returns
+    name -> figures of the B = 2 top seam in bf16 (the kernels line's
+    fit-axis rows), with every shape under "shapes"."""
+    from dip_tpu_torch.fit.engine import disable_tf32
+    from dip_tpu_torch.ops import hopper_up_conv as H
+
+    disable_tf32()
+    stats = {k: {"max_abs_err": 0.0, "shapes": []} for k in KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for dtype in (torch.bfloat16, torch.float32):
+        for fits, n, h, w, c, f in FIT_SEAMS:
+            g = fits * n
+            xp = torch.randn((g, h + 2, w + 2, c), generator=gen, device=dev).to(dtype)
+            e = (torch.randn((fits, 3, 3, c, 4 * f), generator=gen, device=dev) * 0.05).to(dtype)
+            dzq = torch.randn((g, h, w, 4 * f), generator=gen, device=dev).to(torch.bfloat16)
+            carry = torch.randn((g, 2 * h, 2 * w, f), generator=gen, device=dev).to(dtype)
+            xs, dzs, cs = xp.chunk(fits), dzq.chunk(fits), carry.chunk(fits)
+            batched = seam_calls(H, xp, e, dzq, carry, dtype)
+            batched["wgrad"] = (lambda: H.wgrad(xp, dzq, fits), None)
+            single = [seam_calls(H, xs[b], e[b], dzs[b], cs[b], dtype) for b in range(fits)]
+            one = seam_calls(H, xs[0], e[:1], dzs[0], cs[0], dtype)
+            one["wgrad"] = (lambda: H.wgrad(xs[0], dzs[0], 1)[0], None)
+            library = fits_library_calls(xp, e, dzq, carry, dtype, fits)
+            for name in KERNELS:
+                got = batched[name][0]()
+                lib_call, lib_back = library[name]
+                lib = lib_back(lib_call())
+                torch.cuda.synchronize()
+                parts = got.chunk(fits) if name != "wgrad" else list(got)
+                rel = abs_err = lib_rel = 0.0
+                same_bits = True
+                lib_parts = lib.chunk(fits) if name != "wgrad" else list(lib)
+                for b in range(fits):
+                    want = single[b][name][1]()
+                    r, a = rel_err(parts[b], want)
+                    rel, abs_err = max(rel, r), max(abs_err, a)
+                    lib_rel = max(lib_rel, rel_err(lib_parts[b].to(want.dtype), want)[0])
+                    same_bits &= torch.equal(parts[b], single[b][name][0]())
+                b1_bits = torch.equal(one[name][0](), single[0][name][0]())
+                if name in ("dgrad", "wgrad") and not torch.equal(batched[name][0](), got):
+                    raise RuntimeError(f"{name} with the fit axis is not deterministic")
+                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], abs_err)
+                reps = 20 if h <= 64 else 5
+                ms = graph_ms(batched[name][0], reps)
+                one_ms = graph_ms(single[0][name][0], reps)
+                lib_ms = graph_ms(lib_call, reps)
+                plain_ms = graph_ms(lambda: [s[name][1]() for s in single], max(1, reps // 4))
+                bound_ms, by = seam_bound(name, g, h, w, c, f, dtype, fits)
+                log(f"[parity] {name:9s} {str(dtype)[6:]:8s} fits B={fits} N={n} h={h} w={w} "
+                    f"C={c} F={f}: per-fit rel {rel:.2e} abs {abs_err:.2e}, grouped library rel "
+                    f"{lib_rel:.2e}; each fit's slice {'bitwise' if same_bits else 'NOT'} the "
+                    f"single-fit launch's, B=1 form {'bitwise' if b1_bits else 'NOT'} today's "
+                    f"| B fits {ms:.4f} ms against B x one fit {fits * one_ms:.4f} ms "
+                    f"({fits} x {one_ms:.4f}), plain {plain_ms:.4f} ms, grouped library "
+                    f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}) [graph-timed]")
+                fig = dict(fits=fits, shape=[n, h, w, c, f], dtype=str(dtype)[6:], ms=ms,
+                           single_fit_ms=one_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=by)
+                stats[name]["shapes"].append(fig)
+                if (fits, n, h, w, c, f) == FIT_SEAMS[-1] and dtype == torch.bfloat16:
+                    stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                       bound_ms=bound_ms, bound_by=by)
+                if rel > TOL[dtype] or lib_rel > TOL[dtype]:
+                    raise RuntimeError(f"{name} with the fit axis disagrees with the plain "
+                                       f"version: rel {rel:.3e}, library {lib_rel:.3e}")
+                if not (same_bits and b1_bits):
+                    raise RuntimeError(f"{name}: a fit's bits depend on the batch")
+                del got, lib, parts, lib_parts
+            del xp, e, dzq, carry, batched, single, one, library
     return stats
 
 
@@ -957,12 +1120,14 @@ def run_fit(spec, dev: torch.device, card: str, prefix: str, tag: str, want: dic
     return delta, ips
 
 
-def _flagship_spec(cd: str | None, steps: int = MAIN_STEPS, log_every: int = 10):
-    """The flagship denoising spec ('f16' at 512^2) in compute dtype `cd`."""
+def _flagship_spec(cd: str | None, steps: int = MAIN_STEPS, log_every: int = 10,
+                   size: int = 512):
+    """The flagship denoising spec ('f16' at size^2, 512 by default) in
+    compute dtype `cd`."""
     from dip_tpu_torch.bench import synthetic_noisy
     from dip_tpu_torch.tasks import denoise
 
-    clean, noisy = synthetic_noisy(512)
+    clean, noisy = synthetic_noisy(size)
     spec = denoise.task(noisy, "f16", gt=clean, num_iter=steps)
     return dataclasses.replace(spec, cfg=dataclasses.replace(
         spec.cfg, compute_dtype=cd, log_every=log_every))
@@ -1148,7 +1313,8 @@ def _fit_parts(spec, dev: torch.device, seed: int = 0) -> tuple:
 
 def _differing(a, b) -> list[str]:
     """The names of the params and the EMA that differ in any bit between
-    fit states a and b, each with its max abs difference."""
+    fit states a and b (Engine's, or a BatchEngine device's), each with its
+    max abs difference."""
     pairs = [(k, a.params[k], b.params[k]) for k in a.params] + [("ema", a.ema_out, b.ema_out)]
     return [f"{k} ({(x - y).abs().max().item():.3e})" for k, x, y in pairs
             if not torch.equal(x, y)]
@@ -1210,12 +1376,13 @@ def phase_graph(dev: torch.device, card: str) -> None:
                 raise RuntimeError("the graphed steps differ from the eager steps")
 
 
-def phase_queue(dev: torch.device, card: str, b1_ips: float) -> None:
+def phase_queue(dev: torch.device, card: str, b1_ips: float) -> float:
     """[queue] QUEUE_JOBS flagship fits in bf16 through FitQueue, MAIN_STEPS
     steps each in chunks of 10, seeds 0..QUEUE_JOBS-1 (the graphs captured
     one after another, then the chunks round-robin): every loss finite
     and falling, every render finite, the jobs' params pairwise different,
-    and the launch counts QUEUE_JOBS x path_launches."""
+    and the launch counts QUEUE_JOBS x path_launches. Returns the aggregate
+    fit-iterations/s."""
     from dip_tpu_torch.parallel import FitQueue
 
     spec = _flagship_spec("bfloat16")
@@ -1253,6 +1420,233 @@ def phase_queue(dev: torch.device, card: str, b1_ips: float) -> None:
             raise RuntimeError(f"{name}: render not finite")
     if same:
         raise RuntimeError(f"jobs from different seeds ended with equal params: {same}")
+    return QUEUE_JOBS * MAIN_STEPS / wall
+
+
+def _batch_parts(spec, dev: torch.device, fits: int = BATCH_FITS):
+    """(BatchEngine, state, auxs) of `fits` fits of the denoising `spec` on
+    a copy of its model: fit i seeded as run_task(spec, i) seeds it (z from
+    seed i, weights from i + 1), each on its own noisy image (the spec's
+    clean image plus its own sigma-25 noise, numpy seed i)."""
+    from dip_tpu_torch.parallel import BatchEngine
+    from dip_tpu_torch.tasks.base import make_input
+
+    beng = BatchEngine(copy.deepcopy(spec.model), spec.loss_fn, spec.cfg, spec.metrics_fn,
+                       device=dev)
+    clean = spec.aux["gt"][0].numpy()
+    noisy = [np.clip(clean + np.random.default_rng(i).normal(scale=25 / 255, size=clean.shape),
+                     0, 1).astype(np.float32) for i in range(fits)]
+    auxs = {"noisy": torch.from_numpy(np.stack(noisy)[:, None]).to(dev),
+            "gt": spec.aux["gt"].expand(fits, *spec.aux["gt"].shape).contiguous().to(dev)}
+    zs = torch.stack([make_input(spec, torch.Generator().manual_seed(i), "cpu")
+                      for i in range(fits)])
+    return beng, beng.init_state([i + 1 for i in range(fits)], zs), auxs
+
+
+def _batch_spec(cd: str | None, size: int, steps: int = MAIN_STEPS):
+    """A [batch] spec: the flagship at size^2; at 64^2 with the seam's
+    carry-in, so that K1c runs with the fit axis too."""
+    spec = _flagship_spec(cd, steps, 10, size)
+    spec.model.seam_carry = size != 512
+    return spec
+
+
+def phase_batch(dev: torch.device, card: str, b8_ips: float) -> dict:
+    """[batch] BatchEngine over BATCH_FITS flagship fits at full width (Skip
+    5x128, bilinear seams), bf16 and f32, at 512^2 and at 64^2 (there with
+    the seam's carry-in), MAIN_STEPS graphed steps through BatchEngine.run:
+    each fit's loss falling, each render finite, and the launches exactly
+    ONE fit's path_launches (one launch of each seam kernel a seam for all
+    the fits), counters set to 0 just before and read just after; the
+    fit-iterations/s (steps 11-30) beside a graphed b1 fit of the same
+    spec and the FitQueue b8 (512^2 bf16). Then, under deterministic cuDNN
+    at 512^2: one eager batched step held per fit to BATCH_FITS Engine
+    steps from the same seeds (loss within BATCH_LOSS_TOL relative, every
+    gradient within BATCH_GRAD_TOL of the fit's largest), and GRAPH_STEPS
+    eager batched steps against BatchEngine.run of as many (one eager step,
+    replays) bit for bit; and three eager batched steps with no host sync.
+    Returns the launches of all the runs, by counter."""
+    from dip_tpu_torch.fit.engine import tf32_flags
+    from dip_tpu_torch.tasks.base import start_task
+
+    total: dict = {}
+    for size, cd in ((512, "bfloat16"), (512, None), (64, "bfloat16"), (64, None)):
+        tag = f"{size}^2 {cd or 'float32'}" + (" seam carry" if size != 512 else "")
+        spec = _batch_spec(cd, size)
+        _, b1_ips = run_fit(spec, dev, card, "batch", f"b1 reference, flagship {tag}",
+                            path_launches(spec, MAIN_STEPS), None)
+        beng, state, auxs = _batch_parts(spec, dev)
+        marks: list[tuple[int, float]] = []
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        state, hist = beng.run(state, auxs, callback=lambda it, h, s: marks.append(
+            (it, time.perf_counter())))
+        out = beng.render(state)
+        torch.cuda.synchronize(dev)
+        delta = launch_counts()
+        (i0, t0), (i1, t1) = marks[0], marks[-1]
+        ips = BATCH_FITS * (i1 - i0) / (t1 - t0)
+        loss = hist["loss"]
+        want = path_launches(spec, MAIN_STEPS)
+        log(f"[batch] {BATCH_FITS} fits, flagship {tag}, BatchEngine graphed: {ips:.2f} "
+            f"fit-it/s ({ips / BATCH_FITS:.2f} batched steps/s, steps {i0 + 1}-{i1}) against "
+            f"graphed b1 {b1_ips:.2f} it/s" + (f" and FitQueue b{QUEUE_JOBS} {b8_ips:.2f} it/s"
+                                               if (size, cd) == (512, "bfloat16") else "")
+            + " | losses " + ", ".join(f"{a:.4f}->{b:.4f}" for a, b in zip(loss[0], loss[-1]))
+            + f" | peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB | launches "
+            f"{delta} (one fit's: {want}) | {tf32_flags()} | card {card}")
+        if delta != want:
+            raise RuntimeError(f"batched launch counts {delta} != one fit's {want}")
+        if not (np.isfinite(loss).all() and (loss[-1] < loss[0]).all()):
+            raise RuntimeError(f"a batched fit's loss is not finite and falling: {loss}")
+        if tuple(out.shape) != (BATCH_FITS, 1, size, size, 3) or not torch.isfinite(out).all():
+            raise RuntimeError(f"bad batched render {tuple(out.shape)}")
+        total = {k: total.get(k, 0) + v for k, v in delta.items()}
+        del beng, state, auxs, out
+
+    with _deterministic_cudnn():
+        for cd in ("bfloat16", None):
+            spec = _batch_spec(cd, 512, 1)
+            beng, state, auxs = _batch_parts(spec, dev)
+            got = beng.step(state, auxs)
+            shard = state.shards[0]
+            g_bat = {k: p.grad for k, p in shard.params.items()}
+            # the biases of the convs that feed a BN: every conv of a Skip but
+            # the last (BATCH_GRAD_TOL's note)
+            noise = {f"convs.{j}.bias" for j in range(len(spec.model.convs) - 1)}
+            worst_loss = worst_grad = worst_noise = 0.0
+            for i in range(BATCH_FITS):
+                one = dataclasses.replace(spec, aux={k: v[i].cpu() for k, v in auxs.items()},
+                                          model=copy.deepcopy(spec.model))
+                eng, st, aux = start_task(one, i, device=dev)
+                _, m = eng.step(st, aux)
+                g_max = max(p.grad.abs().max().item() for p in st.params.values())
+                errs = {k: (g_bat[k][i] - p.grad).abs().max().item() / g_max
+                        for k, p in st.params.items()}
+                worst_grad = max([worst_grad] + [e for k, e in errs.items() if k not in noise])
+                worst_noise = max([worst_noise] + [errs[k] for k in noise])
+                worst_loss = max(worst_loss, abs(got["loss"][i].item() / m["loss"].item() - 1))
+                del eng, st, aux
+            tol_l, tol_g = BATCH_LOSS_TOL[cd], BATCH_GRAD_TOL[cd]
+            log(f"[batch] flagship 512^2 {cd or 'float32'}, cudnn deterministic: one batched "
+                f"step against {BATCH_FITS} Engine steps from the same seeds: loss max rel "
+                f"{worst_loss:.2e} (limit {tol_l:.0e}), gradients max err / the fit's max "
+                f"{worst_grad:.2e} (limit {tol_g:.0e}; the {len(noise)} BN-fed conv biases, "
+                f"zero in exact arithmetic, {worst_noise:.2e}) | card {card}")
+            if worst_loss > tol_l or worst_grad > tol_g:
+                raise RuntimeError("a batched fit's step differs from its own Engine's")
+            del beng, state, auxs, g_bat
+        spec = _batch_spec("bfloat16", 512, GRAPH_STEPS)
+        be_e, st_e, aux_e = _batch_parts(spec, dev)
+        eager = torch.stack([be_e.step(st_e, aux_e)["loss"] for _ in range(GRAPH_STEPS)]).cpu()
+        be_g, st_g, aux_g = _batch_parts(spec, dev)
+        _, hist = be_g.run(st_g, aux_g)
+        torch.cuda.synchronize(dev)
+        same = torch.equal(eager, torch.from_numpy(hist["loss"]))
+        differ = _differing(st_e.shards[0], st_g.shards[0])
+        log(f"[batch] {BATCH_FITS} fits, flagship 512^2 bfloat16, cudnn deterministic: "
+            f"{GRAPH_STEPS} eager batched steps against run() ({GRAPH_STEPS - 1} replays): "
+            f"losses {'bitwise equal' if same else 'DIFFER'}, params and EMA "
+            f"{'bitwise equal' if not differ else 'DIFFER in ' + ', '.join(differ[:6])}")
+        if not same or differ:
+            raise RuntimeError("the graphed batched steps differ from the eager ones")
+        del be_e, st_e, aux_e, be_g, st_g, aux_g
+
+    spec = _batch_spec("bfloat16", 64)
+    beng, state, auxs = _batch_parts(spec, dev)
+    beng.step(state, auxs)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            beng.step(state, auxs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(dev)
+    log(f"[sync] BatchEngine {BATCH_FITS} fits, flagship 64^2 bfloat16 seam carry: 3 batched "
+        f"steps made no host sync")
+    return total
+
+
+def synthetic_sr_png(path: Path, h: int, w: int, seed: int) -> None:
+    """A smooth textured (h, w, 3) numpy image saved as a PNG."""
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([np.sin(xx / 9 + seed) * np.cos(yy / 13) * 0.5 + 0.5,
+                    np.cos((xx + yy) / 11) * 0.4 + 0.5,
+                    np.sin(xx / 5) * np.sin(yy / 7) * 0.2 + (xx + yy) / (h + w) * 0.6], -1)
+    img = img + np.random.default_rng(seed).random(img.shape) * 0.05
+    Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path)
+
+
+def fleet_images() -> Path:
+    """FLEET_IMAGES as PNGs under build/ (made anew)."""
+    d = Path("build") / "fleet_images"
+    d.mkdir(parents=True, exist_ok=True)
+    for old in d.glob("*.png"):
+        old.unlink()
+    for seed, (name, (h, w)) in enumerate(FLEET_IMAGES.items()):
+        synthetic_sr_png(d / f"{name}.png", h, w, seed)
+    return d
+
+
+def phase_fleet(dev: torch.device, card: str) -> None:
+    """[fleet] eval_sr_dataset_sharded over make_mesh() (this card) on
+    FLEET_IMAGES, x4, under deterministic cuDNN: the per-image names in
+    sorted order with finite scores, one BatchEngine program per LR shape
+    with the images of a group as sub-batches of the mesh's size, seeded
+    seed + i + 1 (recorded from BatchEngine.init_state), and every score
+    within FLEET_DB_1 of eval_sr_dataset's with the same seeds after one
+    step and within FLEET_DB after FLEET_STEPS."""
+    from dip_tpu_torch.eval import sr_eval
+    from dip_tpu_torch.parallel import batch as pbatch, make_mesh
+
+    d = fleet_images()
+    mesh = make_mesh()
+    names = sorted(FLEET_IMAGES)
+    want_calls = []
+    for shape in dict.fromkeys(FLEET_IMAGES[n] for n in names):
+        group = [i for i, n in enumerate(names) if FLEET_IMAGES[n] == shape]
+        group += [group[-1]] * (-len(group) % mesh.size)
+        want_calls += [([i + 1 for i in group[lo:lo + mesh.size]], shape)
+                       for lo in range(0, len(group), mesh.size)]
+    init = pbatch.BatchEngine.init_state
+    for steps, limit in ((1, FLEET_DB_1), (FLEET_STEPS, FLEET_DB)):
+        calls = []
+
+        def record(self, seeds, zs, extra_params=None):
+            calls.append((list(seeds), tuple(zs.shape[2:4])))
+            return init(self, seeds, zs, extra_params)
+
+        pbatch.BatchEngine.init_state = record
+        try:
+            with _deterministic_cudnn():
+                t0 = time.perf_counter()
+                fleet = sr_eval.eval_sr_dataset_sharded(str(d), mesh, factor=4,
+                                                        num_iter=steps, verbose=False)
+                t_fleet = time.perf_counter() - t0
+                pbatch.BatchEngine.init_state = init
+                t0 = time.perf_counter()
+                seq = sr_eval.eval_sr_dataset(str(d), factor=4, num_iter=steps, verbose=False,
+                                              device=dev)
+                t_seq = time.perf_counter() - t0
+        finally:
+            pbatch.BatchEngine.init_state = init
+        gap = max(abs(fleet.per_image[n] - seq.per_image[n]) for n in names)
+        log(f"[fleet] eval_sr_dataset_sharded over {mesh}, x4, {steps} steps, cudnn "
+            f"deterministic, HR {list(FLEET_IMAGES.values())}: "
+            + ", ".join(f"{n} {fleet.per_image[n]:.3f} dB (sequential {seq.per_image[n]:.3f})"
+                        for n in names)
+            + f" | max gap {gap:.4f} dB (limit {limit}) | BatchEngine programs (seeds, HR) "
+            f"{calls} | fleet {t_fleet:.1f} s, sequential {t_seq:.1f} s | card {card}")
+        if list(fleet.per_image) != names or not all(np.isfinite(list(fleet.per_image.values()))):
+            raise RuntimeError(f"bad fleet scores {fleet.per_image}")
+        if calls != want_calls:
+            raise RuntimeError(f"the fleet's groups {calls} != {want_calls}")
+        if gap > limit:
+            raise RuntimeError(f"the fleet's scores are {gap:.3f} dB from the sequential eval's")
 
 
 def synthetic_flash(size: int) -> tuple[np.ndarray, np.ndarray]:
@@ -1473,7 +1867,9 @@ def phase_cli(dev: torch.device, card: str) -> None:
     """[cli] `dip_tpu_torch.cli.main(["fit", "--task", "activation_max",
     ...])` in this process on the card (its default device; no image, no
     Pillow): it returns 0, prints MAIN_STEPS / 10 finite, falling loss
-    lines, and launches what the same spec implies."""
+    lines, and launches what the same spec implies. Then `eval-sr --fleet`
+    on the [fleet] images over every CUDA device: it returns 0 and prints
+    each image's finite score and the mean."""
     import io
     import re
 
@@ -1500,6 +1896,23 @@ def phase_cli(dev: torch.device, card: str) -> None:
     if delta != want:
         raise RuntimeError(f"launch counts {delta} != {want}")
 
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(["eval-sr", "--dir", str(fleet_images()), "--factor", "4", "--num-iter",
+                  str(FLEET_STEPS), "--fleet"])
+    delta = launch_counts()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[cli] {line}")
+    scores = {m[0]: float(m[1]) for m in re.findall(r"^(\w+): (\S+) dB$", text, re.M)}
+    log(f"[cli] eval-sr --fleet: rc {rc} | scores {scores} | launches {delta} | card {card}")
+    if rc != 0 or sorted(scores) != sorted(FLEET_IMAGES) or not np.isfinite(
+            list(scores.values())).all() or "mean PSNR-Y:" not in text:
+        raise RuntimeError(f"eval-sr --fleet did not end well: rc {rc}, scores {scores}")
+    if delta["fwd"] == 0 or delta["downsample"] == 0:
+        raise RuntimeError(f"eval-sr --fleet ran no kernel: {delta}")
+
 
 def _entry(name: str, src_rep: tuple[str, str], launches: int, stats: dict) -> dict:
     return {"name": name, "route": "cuda", "source": src_rep[0], "replaces": src_rep[1],
@@ -1519,6 +1932,7 @@ def main() -> int:
     card = phase_device()
     phase_build()
     stats = phase_kernel_parity(dev)
+    fits = phase_fit_axis_parity(dev)
     down = phase_downsample_parity(dev)
     s2d = phase_s2d_parity(dev)
     wgrad = phase_wgrad_parity(dev)
@@ -1530,7 +1944,9 @@ def main() -> int:
     phase_zoo_paths(dev, card)
     phase_steps_without_sync(dev)
     phase_graph(dev, card)
-    phase_queue(dev, card, b1_ips)
+    b8_ips = phase_queue(dev, card, b1_ips)
+    batch_launches = phase_batch(dev, card, b8_ips)
+    phase_fleet(dev, card)
     phase_flash(dev, card)
     phase_checkpoint(dev, card)
     phase_lbfgs(dev, card)
@@ -1545,6 +1961,12 @@ def main() -> int:
     kernels = [_entry(f"up_conv_{k}", src_rep,
                       (sr_launches if k == "fwd_carry" else launches)[k], stats[k])
                for k, src_rep in KERNELS.items()]
+    # the fit axis (BatchEngine): launches from the [batch] fits (K1c's from
+    # its 64^2 fits with the carry-in), figures at B = 2 on the top seam
+    for k, src_rep in KERNELS.items():
+        entry = _entry(f"up_conv_{k} (fit axis)", src_rep, batch_launches[k], fits[k])
+        entry["shapes"] = fits[k]["shapes"]
+        kernels.append(entry)
     entry = _entry("downsample_fused", DOWNSAMPLE, sr_launches["downsample"], down)
     entry["shapes"] = down["shapes"]
     kernels.append(entry)

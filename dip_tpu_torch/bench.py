@@ -10,9 +10,12 @@ Engine.step calls), timed in turns with it. The b8 row runs 8 fits in bf16
 through FitQueue, `log_every = iters`, from fresh jobs after a warm run,
 each job's first (eager) step and capture inside the timer and its init
 outside; its rate is iters x 8 / wall, and it checks that the 8 fits,
-seeded apart, end with different params. Rows carry the same JSON keys as
-the JAX bench plus `eager`, `device`, `power_limit` and `tf32`. There is
-no CPU fallback: without a card it raises.
+seeded apart, end with different params. `run_batch` (the CLI's `bench
+--batch N` where there are several CUDA devices) runs the batch through
+BatchEngine over the device mesh instead: one vmapped program per device.
+Rows carry the same JSON keys as the JAX bench plus `eager`, `device`,
+`power_limit` and `tf32`. There is no CPU fallback: without a card it
+raises.
 
     python -m dip_tpu_torch.bench [--size 512] [--iters 100]
     python -m dip_tpu_torch.bench --profile 5   # kernel tables per dtype
@@ -288,6 +291,46 @@ def run_queue(size: int = 512, iters: int = 100, batch: int = 8,
     tag = "" if compute_dtype is None else f"_{compute_dtype}"
     result = _row(f"dip_iters_per_sec_{size}x{size}_b{batch}{tag}", iters * batch / dt,
                   dev, tf32_flags())
+    if print_json:
+        print(json.dumps(result), flush=True)
+    return result
+
+
+def run_batch(size: int = 512, iters: int = 100, batch: int = 8,
+              compute_dtype: str | None = "bfloat16", mesh=None,
+              print_json: bool = True) -> dict:
+    """The b{batch} row through BatchEngine over `mesh` (every CUDA device by
+    default): one vmapped program per device, `batch` flagship fits (seeds
+    0..batch-1) on the same target; a warm run of `iters` steps (the eager
+    step and the capture), then `iters` more timed; its rate is iters x
+    batch / wall."""
+    from dip_tpu_torch.fit.engine import tf32_flags
+    from dip_tpu_torch.ops.losses import mse, psnr
+    from dip_tpu_torch.parallel import BatchEngine, make_mesh
+    from dip_tpu_torch.tasks.base import make_input
+
+    mesh = make_mesh() if mesh is None else mesh
+    spec = flagship_spec(size, iters, compute_dtype, torch.zeros(()))
+    # the target comes through aux (one per fit), so each device reads its own
+    beng = BatchEngine(spec.model, lambda p, out, aux: mse(out, aux), spec.cfg,
+                       lambda out, ema, aux: {"psnr_track": psnr(out, aux)}, mesh=mesh)
+    target = torch.from_numpy(synthetic_noisy(size)[1])
+    auxs = target.expand(batch, *target.shape).contiguous()
+    zs = torch.stack([make_input(spec, torch.Generator().manual_seed(batch + i), "cpu")
+                      for i in range(batch)])
+    state = beng.init_state(range(batch), zs)
+    beng.run(state, auxs)  # warm: the eager step, the capture, cuDNN plans
+    for d in mesh.devices:
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    beng.run(state, auxs)
+    for d in mesh.devices:
+        torch.cuda.synchronize(d)
+    dt = time.perf_counter() - t0
+    tag = "" if compute_dtype is None else f"_{compute_dtype}"
+    result = _row(f"dip_iters_per_sec_{size}x{size}_b{batch}{tag}", iters * batch / dt,
+                  mesh.devices[0], tf32_flags())
+    result["batch_engine_devices"] = mesh.size
     if print_json:
         print(json.dumps(result), flush=True)
     return result

@@ -8,12 +8,16 @@ presets:
     python -m dip_tpu_torch fit --task flash_no_flash --image flash.png --mask noflash.png
     python -m dip_tpu_torch fit --task activation_max --layer fc8 --map-idx 340
     python -m dip_tpu_torch bench --size 512 --iters 100
-    python -m dip_tpu_torch eval-sr --dir Set14/ --factor 4
+    python -m dip_tpu_torch eval-sr --dir Set14/ --factor 4 [--fleet]
 
 `--device` (default cuda) names the device the fits run on; without a
-CUDA device, pass `--device cpu`. The JAX package's `--resample-impl` and
-`--fleet` (its layout and mesh switches) are refused. Pillow is imported
-only where an image is read or written, PyYAML only for `--config`.
+CUDA device, pass `--device cpu`. `eval-sr --fleet` runs the sharded
+evaluation (same-shape images as one BatchEngine program per device) over
+every CUDA device, or over a one-entry mesh of `--device` when that is not
+'cuda'; `bench --batch N` runs BatchEngine over the devices where there
+are several, else FitQueue. The JAX package's `--resample-impl` (its
+downsampler layout switch) is refused. Pillow is imported only where an
+image is read or written, PyYAML only for `--config`.
 """
 
 from __future__ import annotations
@@ -29,8 +33,6 @@ _NOT_PORTED = {
     "resample_impl": "--resample-impl selects the JAX package's in-graph downsampler; the "
                      "port has no such switch (its downsample runs the CUDA kernel on a CUDA "
                      "tensor and the plain version on a CPU tensor)",
-    "fleet": "--fleet shards same-shape SR images over the JAX package's device mesh; "
-             "the port's multi-device layer is not ported yet",
 }
 
 
@@ -216,10 +218,15 @@ def cmd_fit(args):
 
 def cmd_bench(args):
     """The b1 row (f32, as the JAX CLI's bench), or with --batch > 1 the
-    FitQueue row of that many fits."""
-    from dip_tpu_torch.bench import run_bench, run_queue
+    row of that many fits: BatchEngine over the mesh of every CUDA device
+    where there are several (as the JAX bench shards them), else FitQueue."""
+    import torch
 
-    if args.batch > 1:
+    from dip_tpu_torch.bench import run_batch, run_bench, run_queue
+
+    if args.batch > 1 and torch.cuda.device_count() > 1:
+        run_batch(size=args.size, iters=args.iters, batch=args.batch, compute_dtype=None)
+    elif args.batch > 1:
         run_queue(size=args.size, iters=args.iters, batch=args.batch, compute_dtype=None,
                   device=args.device)
     else:
@@ -227,10 +234,19 @@ def cmd_bench(args):
 
 
 def cmd_eval_sr(args):
-    from dip_tpu_torch.eval.sr_eval import eval_sr_dataset
+    if args.fleet:
+        # each same-shape group as one BatchEngine program per device
+        from dip_tpu_torch.eval.sr_eval import eval_sr_dataset_sharded
+        from dip_tpu_torch.parallel.mesh import Mesh, make_mesh
 
-    res = eval_sr_dataset(args.dir, factor=args.factor, num_iter=args.num_iter,
-                          device=args.device)
+        mesh = make_mesh() if args.device == "cuda" else Mesh([args.device])
+        res = eval_sr_dataset_sharded(args.dir, mesh, factor=args.factor,
+                                      num_iter=args.num_iter)
+    else:
+        from dip_tpu_torch.eval.sr_eval import eval_sr_dataset
+
+        res = eval_sr_dataset(args.dir, factor=args.factor, num_iter=args.num_iter,
+                              device=args.device)
     print(f"mean PSNR-Y: {res.mean_psnr_y:.3f} dB")
     print(res.latex_row())
 
@@ -314,7 +330,8 @@ def build_parser() -> tuple[argparse.ArgumentParser, argparse.ArgumentParser]:
     e.add_argument("--factor", type=int, default=4)
     e.add_argument("--num-iter", type=int, default=None)
     e.add_argument("--fleet", action="store_true",
-                   help="the JAX package's mesh-sharded evaluation; refused here")
+                   help="shape-grouped fleet: each group as one BatchEngine program "
+                        "per device of the mesh")
     _add_device(e)
     e.set_defaults(fn=cmd_eval_sr)
     return p, f

@@ -9,6 +9,11 @@
 // zero outside rows 0..h-1 and columns 0..w-1; bf16 products summed in f32,
 // stored in dxp's dtype (bf16 or f32). The wrapper rounds e to bf16 once.
 //
+// With a fit axis (BatchEngine: B independent fits in one launch), e is
+// (B,3,3,C,4F) and image n takes e[n / (N/B)], as in the forward; the split
+// plan is the one fit's (N/B images), so a fit's bits do not depend on B,
+// and B = 1 is the single-e launch, bit for bit.
+//
 // Replaces _dgrad_kernel (dip_tpu/ops/pallas_up_conv.py:252, launched at
 // :307). The TPU kernel zero-pads dz in device memory and moves the column
 // shift to a slice-add on its output; here neither: the halo staging
@@ -155,8 +160,8 @@ __device__ __forceinline__ void store_as(bf16* p, float v) { *p = __float2bfloat
 template <typename T, bool kAsync>
 __global__ void __launch_bounds__(THREADS, 2)
 up_conv_dgrad_mma_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ e,
-                         T* __restrict__ out, int h, int w, int c, int f4, int tiles_w,
-                         int tiles_c, int per, size_t slab, int vec_out) {
+                         T* __restrict__ out, int h, int w, int c, int f4, int n_fit,
+                         int tiles_w, int tiles_c, int per, size_t slab, int vec_out) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);  // [STAGES][BN][PITCH]
   bf16* halo = ring + STAGES * ETILE_ELEMS;    // [2][HALO_ROWS][PITCH]
@@ -171,6 +176,7 @@ up_conv_dgrad_mma_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ e
   const int total = 9 * ((f4 + KC - 1) / KC);
   const int it0 = split * per, count = min(per, total - it0);
   const bf16* db = dz + (size_t)b * h * w * f4;
+  const bf16* eb = e + (size_t)(b / n_fit) * 9 * c * f4;  // this image's fit's e
   // a warp whose channels or pixel rows all lie past C or h+2 has nothing to sum
   const bool live = c0 + warp_n * 64 < c && r0 + warp_m * 4 < hp;
 
@@ -197,7 +203,7 @@ up_conv_dgrad_mma_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ e
       const int row = i / (KC / 8), k8 = (i % (KC / 8)) * 8;
       const int ch = c0 + row, col = k0 + k8;
       const bool ok = ch < c && col < f4;
-      const bf16* src = ok ? e + ((size_t)tap * c + ch) * f4 + col : e;
+      const bf16* src = ok ? eb + ((size_t)tap * c + ch) * f4 + col : e;
       bf16* d = dst + row * PITCH + k8;
       if (kAsync)
         cp_async16(d, src, ok);
@@ -349,8 +355,8 @@ __global__ void up_conv_dgrad_sum_kernel(const float* __restrict__ ws, T* __rest
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T, bool kAsync>
-int launch_mma(const bf16* dz, const bf16* e, T* out, int n, int h, int w, int c, int f4,
-               int splits, int per, cudaStream_t st) {
+int launch_mma(const bf16* dz, const bf16* e, T* out, int n, int n_fit, int h, int w, int c,
+               int f4, int splits, int per, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(up_conv_dgrad_mma_kernel<T, kAsync>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmem);
@@ -361,22 +367,23 @@ int launch_mma(const bf16* dz, const bf16* e, T* out, int n, int h, int w, int c
   const int vec_out = c % Epi<T>::VEC == 0 && aligned16(out);
   dim3 grid(tiles_w * tiles_h, tiles_c * splits, n);
   up_conv_dgrad_mma_kernel<T, kAsync><<<grid, THREADS, kSmem, st>>>(
-      dz, e, out, h, w, c, f4, tiles_w, tiles_c, per, slab, vec_out);
+      dz, e, out, h, w, c, f4, n_fit, tiles_w, tiles_c, per, slab, vec_out);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dgrad(const bf16* dz, const bf16* e, float* ws, void* dxp, int n, int h, int w,
-                 int c, int f4, int splits, int per, cudaStream_t st) {
+int launch_dgrad(const bf16* dz, const bf16* e, float* ws, void* dxp, int n, int n_fit, int h,
+                 int w, int c, int f4, int splits, int per, cudaStream_t st) {
   // 16-byte copies need whole, aligned 8-column groups in dzq's and e's rows
   const bool async = f4 % 8 == 0 && aligned16(dz) && aligned16(e);
   if (splits == 1) {
     T* out = static_cast<T*>(dxp);
-    return async ? launch_mma<T, true>(dz, e, out, n, h, w, c, f4, 1, per, st)
-                 : launch_mma<T, false>(dz, e, out, n, h, w, c, f4, 1, per, st);
+    return async ? launch_mma<T, true>(dz, e, out, n, n_fit, h, w, c, f4, 1, per, st)
+                 : launch_mma<T, false>(dz, e, out, n, n_fit, h, w, c, f4, 1, per, st);
   }
-  const int rc = async ? launch_mma<float, true>(dz, e, ws, n, h, w, c, f4, splits, per, st)
-                       : launch_mma<float, false>(dz, e, ws, n, h, w, c, f4, splits, per, st);
+  const int rc = async
+                     ? launch_mma<float, true>(dz, e, ws, n, n_fit, h, w, c, f4, splits, per, st)
+                     : launch_mma<float, false>(dz, e, ws, n, n_fit, h, w, c, f4, splits, per, st);
   if (rc != 0) return rc;
   const size_t elems = (size_t)n * (h + 2) * (w + 2) * c;
   const int vec = elems % 4 == 0 && aligned16(dxp);
@@ -393,16 +400,19 @@ int launch_dgrad(const bf16* dz, const bf16* e, float* ws, void* dxp, int n, int
 // Launches on `stream`, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue unless the
 // splits of `per` steps (a multiple of 3) cover the 9 * ceil(4F/64) steps,
-// each split at least one. dzq and e are bf16 (the wrapper rounds e once);
+// each split at least one, and `fits` divides N. e holds `fits` kernels
+// (3,3,C,4F) one after another; image n of the N takes kernel n / (N /
+// fits). dzq and e are bf16 (the wrapper rounds e once);
 // `x_is_f32` selects float (else bf16) for dxp. With one split the kernel
 // stores dxp and `ws` is unused (may be null); with more, `ws` holds
 // splits * N * (h+2) * (w+2) * C floats, 16-byte aligned.
-extern "C" int dip_up_conv_dgrad(const void* dzq, const void* e, void* ws, void* dxp, int n,
-                                 int h, int w, int c, int f, int splits, int per, int x_is_f32,
-                                 void* stream) {
+extern "C" int dip_up_conv_dgrad(const void* dzq, const void* e, void* ws, void* dxp,
+                                 int fits, int n, int h, int w, int c, int f, int splits,
+                                 int per, int x_is_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int f4 = 4 * f, total = 9 * ((f4 + KC - 1) / KC);
-  if (n < 1 || n > 65535 || splits < 1 || per < 1 || per % 3 != 0 ||
+  if (fits < 1 || n < 1 || n > 65535 || n % fits != 0 || splits < 1 || per < 1 ||
+      per % 3 != 0 ||
       (long long)splits * per < total || (long long)(splits - 1) * per >= total ||
       (long long)splits * ((c + BN - 1) / BN) > 65535 ||
       (splits > 1 && (ws == nullptr || !aligned16(ws))))
@@ -410,6 +420,7 @@ extern "C" int dip_up_conv_dgrad(const void* dzq, const void* e, void* ws, void*
   const bf16* dq = static_cast<const bf16*>(dzq);
   const bf16* ee = static_cast<const bf16*>(e);
   float* wsf = static_cast<float*>(ws);
-  return x_is_f32 ? launch_dgrad<float>(dq, ee, wsf, dxp, n, h, w, c, f4, splits, per, st)
-                  : launch_dgrad<bf16>(dq, ee, wsf, dxp, n, h, w, c, f4, splits, per, st);
+  const int nf = n / fits;
+  return x_is_f32 ? launch_dgrad<float>(dq, ee, wsf, dxp, n, nf, h, w, c, f4, splits, per, st)
+                  : launch_dgrad<bf16>(dq, ee, wsf, dxp, n, nf, h, w, c, f4, splits, per, st);
 }

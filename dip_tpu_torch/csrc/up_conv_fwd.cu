@@ -5,6 +5,11 @@
 //
 //   fwd  xp (N,h+2,w+2,C) bf16, e (3,3,C,4F) bf16 -> out (N,2h,2w,F) [+ carry]
 //
+// With a fit axis (BatchEngine: B independent fits in one launch), e is
+// (B,3,3,C,4F), one kernel a fit, and the N images are B runs of N/B, image
+// b taking e[b / (N/B)]. B = 1 is the single-e launch, bit for bit: the
+// fit index only moves the pointer e tiles are read from.
+//
 // out[n, 2r+p, 2s+q, f] = sum_{d,g,c} xp[n, r+d, s+g, c] * e[d, g, c, (p*2+q)*F + f],
 // bf16 products summed in f32, stored in the output's dtype (bf16 or f32);
 // with a carry, carry[out index] is added to the rounded result in that
@@ -176,7 +181,7 @@ template <typename T, bool kCarry, bool kAsync>
 __global__ void __launch_bounds__(THREADS, 2)
 up_conv_fwd_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ e,
                        const T* __restrict__ carry, T* __restrict__ out, int h, int w, int c,
-                       int f, int tiles_w, int vec_out) {
+                       int f, int n_fit, int tiles_w, int vec_out) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);  // [STAGES][KC][B_PITCH]
   bf16* halo = ring + STAGES * ETILE_ELEMS;    // [2][HALO_ROWS][A_PITCH]
@@ -188,6 +193,7 @@ up_conv_fwd_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ e,
   const int b = blockIdx.z;
   const int hp = h + 2, wp = w + 2, f4 = 4 * f;
   const bf16* xb = xp + (size_t)b * hp * wp * c;
+  const bf16* eb = e + (size_t)(b / n_fit) * 9 * c * f4;  // this image's fit's e
   const int nchunks = (c + KC - 1) / KC, total = 9 * nchunks;
 
   // chunk `chunk` of the halo: (TH+2) x (TW+2) pixels x KC channels
@@ -212,7 +218,7 @@ up_conv_fwd_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ e,
       const int k = i / (BN / 8), n8 = (i % (BN / 8)) * 8;
       const int ch = c0 + k, col = n0 + n8;
       const bool ok = ch < c && col < f4;
-      const bf16* src = ok ? e + ((size_t)tap * c + ch) * f4 + col : e;
+      const bf16* src = ok ? eb + ((size_t)tap * c + ch) * f4 + col : e;
       bf16* d = dst + k * B_PITCH + n8;
       if (kAsync)
         cp_async16(d, src, ok);
@@ -331,8 +337,8 @@ up_conv_fwd_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ e,
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T, bool kCarry, bool kAsync>
-int launch(const bf16* xp, const bf16* e, const T* carry, T* out, int n, int h, int w, int c,
-           int f, cudaStream_t st) {
+int launch(const bf16* xp, const bf16* e, const T* carry, T* out, int n, int n_fit, int h,
+           int w, int c, int f, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(up_conv_fwd_mma_kernel<T, kCarry, kAsync>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmem);
@@ -341,37 +347,42 @@ int launch(const bf16* xp, const bf16* e, const T* carry, T* out, int n, int h, 
   const int vec_out = f % Epi<T>::VEC == 0 && aligned16(out) && (!kCarry || aligned16(carry));
   dim3 grid(tiles_w * tiles_h, (4 * f + BN - 1) / BN, n);
   up_conv_fwd_mma_kernel<T, kCarry, kAsync><<<grid, THREADS, kSmem, st>>>(
-      xp, e, carry, out, h, w, c, f, tiles_w, vec_out);
+      xp, e, carry, out, h, w, c, f, n_fit, tiles_w, vec_out);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool kCarry>
-int launch_fwd(const void* xp, const void* e, const void* carry, void* out, int n, int h,
-               int w, int c, int f, cudaStream_t st) {
+int launch_fwd(const void* xp, const void* e, const void* carry, void* out, int n, int n_fit,
+               int h, int w, int c, int f, cudaStream_t st) {
   const bf16* x = static_cast<const bf16*>(xp);
   const bf16* ee = static_cast<const bf16*>(e);
   const T* cy = static_cast<const T*>(carry);
   T* o = static_cast<T*>(out);
   // 16-byte copies need whole, aligned 8-channel groups in xp's rows and e's
   if (c % 8 == 0 && f % 2 == 0 && aligned16(xp) && aligned16(e))
-    return launch<T, kCarry, true>(x, ee, cy, o, n, h, w, c, f, st);
-  return launch<T, kCarry, false>(x, ee, cy, o, n, h, w, c, f, st);
+    return launch<T, kCarry, true>(x, ee, cy, o, n, n_fit, h, w, c, f, st);
+  return launch<T, kCarry, false>(x, ee, cy, o, n, n_fit, h, w, c, f, st);
 }
 
 }  // namespace
 
 // -- C interface ---------------------------------------------------------------
 // Launches on `stream`, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() (0 on success). xp and e are bf16 (the wrapper rounds an
-// f32 xp once); `x_is_f32` selects float (else bf16) for the output and the
-// carry. `carry` is null, or (N,2h,2w,F), added to the output.
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue unless `fits`
+// divides N. xp and e are bf16 (the wrapper rounds an f32 xp once);
+// `x_is_f32` selects float (else bf16) for the output and the carry. e holds
+// `fits` kernels (3,3,C,4F) one after another; image b of the N takes
+// kernel b / (N / fits). `carry` is null, or (N,2h,2w,F), added to the
+// output.
 extern "C" int dip_up_conv_fwd(const void* xp, const void* e, const void* carry, void* out,
-                               int n, int h, int w, int c, int f, int x_is_f32,
+                               int fits, int n, int h, int w, int c, int f, int x_is_f32,
                                void* stream) {
+  if (fits < 1 || n < 1 || n > 65535 || n % fits != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nf = n / fits;
   if (carry != nullptr)
-    return x_is_f32 ? launch_fwd<float, true>(xp, e, carry, out, n, h, w, c, f, st)
-                    : launch_fwd<bf16, true>(xp, e, carry, out, n, h, w, c, f, st);
-  return x_is_f32 ? launch_fwd<float, false>(xp, e, carry, out, n, h, w, c, f, st)
-                  : launch_fwd<bf16, false>(xp, e, carry, out, n, h, w, c, f, st);
+    return x_is_f32 ? launch_fwd<float, true>(xp, e, carry, out, n, nf, h, w, c, f, st)
+                    : launch_fwd<bf16, true>(xp, e, carry, out, n, nf, h, w, c, f, st);
+  return x_is_f32 ? launch_fwd<float, false>(xp, e, carry, out, n, nf, h, w, c, f, st)
+                  : launch_fwd<bf16, false>(xp, e, carry, out, n, nf, h, w, c, f, st);
 }

@@ -23,6 +23,13 @@
 // NHWC-dense: the K5 and K6 wrappers copy a channel-planar input once. K5
 // and K6 in f32 stay true f32 in wgrad.cu.
 //
+// K3 has a fit axis (BatchEngine: B independent fits in one launch): the N
+// images are B runs of N/B, and fit b sums only its own images into its own
+// de[b] (B,3,3,C,4F), through slabs of its own (a workspace of B x splits
+// slabs) and a sum pass over its slabs in split order. The split plan is
+// the one fit's, so a fit's bits do not depend on B; B = 1 is the single
+// launch, bit for bit, and K5 and K6 always launch with B = 1.
+//
 // Replaces _wgrad_kernel (dip_tpu/ops/pallas_up_conv.py:336, launched at
 // :369) and, in bf16, _wgrad3x3_kernel (dip_tpu/ops/pallas_wgrad.py:88,
 // launched by wgrad3x3_s1 at :153) and _wgrad1x1_kernel (:184, launched by
@@ -153,10 +160,11 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], 
 }
 
 // Block (blockIdx.x = (channel tile * tiles_k + column tile) * NT + d,
-// split blockIdx.y) sums pixel tiles [split * per, min((split + 1) * per,
-// tiles)) of the NT taps (d, 0..NT-1) into slab `split` of ws (splits,
-// NT*NT, C, ld), ld = cols rounded up to 4. Tile t is image t / (tiles_h *
-// tiles_w), then row-major 8x16 tiles. x is (N, h+NT-1, w+NT-1, C).
+// split blockIdx.y, fit blockIdx.z) sums its fit's pixel tiles [split *
+// per, min((split + 1) * per, tiles)) of the NT taps (d, 0..NT-1) into slab
+// `split` of the fit's ws (fits, splits, NT*NT, C, ld), ld = cols rounded
+// up to 4. Tile t of a fit is its image t / (tiles_h * tiles_w), then
+// row-major 8x16 tiles. x is (N, h+NT-1, w+NT-1, C), `tiles` a fit's.
 template <int NT, bool kAsync>
 __global__ void __launch_bounds__(THREADS, 1)
 up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ dz,
@@ -176,6 +184,10 @@ up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ d
   const int t_begin = split * per;
   const int count = min(per, tiles - t_begin);
   const int hp = h + NT - 1, wp = w + NT - 1;
+  const size_t fit = blockIdx.z, n_fit = tiles / per_img;
+  const bf16* xf = xp + fit * n_fit * hp * wp * c;
+  const bf16* dzf = dz + fit * n_fit * h * w * cols;
+  float* wsf = ws + fit * gridDim.y * NT * NT * c * ld;
   // a warp whose channels or columns all lie past C or cols has nothing to sum
   const bool live = c0 + warp_m * 32 < c && n0 + warp_n * 32 < cols;
 
@@ -183,7 +195,7 @@ up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ d
   auto load_tile = [&](int t, bf16* st) {
     const int b = t / per_img, rem = t - b * per_img;
     const int r0 = (rem / tiles_w) * TH, s0 = (rem % tiles_w) * TW;
-    const bf16* xb = xp + ((size_t)b * hp + r0 + d) * wp * c;
+    const bf16* xb = xf + ((size_t)b * hp + r0 + d) * wp * c;
     for (int i = tid; i < WIN * (BC / 8); i += THREADS) {
       const int px = i / (BC / 8), k8 = (i % (BC / 8)) * 8;
       const int rr = px / WIN_COLS, cc = s0 + px % WIN_COLS, ch = c0 + k8;
@@ -195,7 +207,7 @@ up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ d
       else
         stage8_sync(src, ok ? min(8, c - ch) : 0, dst);
     }
-    const bf16* db = dz + ((size_t)b * h + r0) * w * cols;
+    const bf16* db = dzf + ((size_t)b * h + r0) * w * cols;
     bf16* ds = st + X_ELEMS;
     for (int i = tid; i < BP * (BK / 8); i += THREADS) {
       const int px = i / (BK / 8), n8 = (i % (BK / 8)) * 8;
@@ -284,7 +296,7 @@ up_conv_wgrad_mma_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ d
   const int qrow = lane >> 2, qcol = (lane & 3) * 2;
 #pragma unroll
   for (int g = 0; g < NT; ++g) {
-    float* slab = ws + ((size_t)split * NT * NT + NT * d + g) * c * ld;
+    float* slab = wsf + ((size_t)split * NT * NT + NT * d + g) * c * ld;
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
       const int ch = c0 + warp_m * 32 + mi * 16 + qrow;
@@ -311,14 +323,16 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(q);
 }
 
-// Second pass where ld = cols: out = the slabs' sum, in split order, four
-// values a thread (9*C*cols is then a multiple of 4), rounded once to out's
-// dtype.
+// Second pass where ld = cols: each fit's out = the sum of its slabs, in
+// split order, four values a thread (9*C*cols is then a multiple of 4),
+// rounded once to out's dtype.
 template <typename T>
 __global__ void up_conv_wgrad_sum_kernel(const float4* __restrict__ ws, T* __restrict__ de,
-                                         int splits, size_t quads) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= quads) return;
+                                         int splits, size_t quads, int fits) {
+  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= quads * fits) return;
+  const size_t fit = k / quads, i = k - fit * quads;
+  ws += fit * splits * quads;
   float4 s = ws[i];
   for (int sp = 1; sp < splits; ++sp) {
     const float4 v = ws[(size_t)sp * quads + i];
@@ -327,30 +341,34 @@ __global__ void up_conv_wgrad_sum_kernel(const float4* __restrict__ ws, T* __res
     s.z += v.z;
     s.w += v.w;
   }
-  store4(de + 4 * i, s);
+  store4(de + 4 * k, s);
 }
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16(v); }
 
-// Second pass where ld > cols (cols off 4): out (9*C rows of cols, dense) =
-// the slabs' sum over rows of pitch ld, in split order, one value a thread.
+// Second pass where ld > cols (cols off 4): each fit's out (9*C rows of
+// cols, dense) = the sum of its slabs over rows of pitch ld, in split
+// order, one value a thread.
 template <typename T>
 __global__ void up_conv_wgrad_sum_rows_kernel(const float* __restrict__ ws, T* __restrict__ out,
-                                              int splits, int cols, int ld, size_t total) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
+                                              int splits, int cols, int ld, size_t total,
+                                              int fits) {
+  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= total * fits) return;
+  const size_t fit = k / total, i = k - fit * total;
   const size_t at = i / cols * ld + i % cols, slab = total / cols * ld;
+  ws += fit * splits * slab;
   float s = ws[at];
   for (int sp = 1; sp < splits; ++sp) s += ws[(size_t)sp * slab + at];
-  store1(out + i, s);
+  store1(out + k, s);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <int NT, bool kAsync>
-int launch_mma(const bf16* x, const bf16* dz, float* ws, int n, int h, int w, int c, int cols,
-               int ld, int splits, int per, cudaStream_t st) {
+int launch_mma(const bf16* x, const bf16* dz, float* ws, int fits, int n_fit, int h, int w,
+               int c, int cols, int ld, int splits, int per, cudaStream_t st) {
   constexpr size_t smem = Win<NT>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(up_conv_wgrad_mma_kernel<NT, kAsync>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -358,36 +376,39 @@ int launch_mma(const bf16* x, const bf16* dz, float* ws, int n, int h, int w, in
   if (err != cudaSuccess) return (int)err;
   const int tiles_c = (c + BC - 1) / BC, tiles_k = (cols + BK - 1) / BK;
   const int tiles_w = (w + TW - 1) / TW, per_img = ((h + TH - 1) / TH) * tiles_w;
-  dim3 grid(tiles_c * tiles_k * NT, splits);
+  dim3 grid(tiles_c * tiles_k * NT, splits, fits);
   up_conv_wgrad_mma_kernel<NT, kAsync><<<grid, THREADS, smem, st>>>(
-      x, dz, ws, h, w, c, cols, ld, tiles_k, tiles_w, per_img, n * per_img, per);
+      x, dz, ws, h, w, c, cols, ld, tiles_k, tiles_w, per_img, n_fit * per_img, per);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_sum(const float* ws, void* out, int splits, int taps, int c, int cols, int ld,
-               cudaStream_t st) {
+int launch_sum(const float* ws, void* out, int fits, int splits, int taps, int c, int cols,
+               int ld, cudaStream_t st) {
   const int threads = 256;
   if (ld == cols) {
-    const size_t quads = (size_t)taps * c * cols / 4;
-    up_conv_wgrad_sum_kernel<T><<<(unsigned)((quads + threads - 1) / threads), threads, 0, st>>>(
-        reinterpret_cast<const float4*>(ws), static_cast<T*>(out), splits, quads);
+    const size_t quads = (size_t)taps * c * cols / 4, all = quads * fits;
+    up_conv_wgrad_sum_kernel<T><<<(unsigned)((all + threads - 1) / threads), threads, 0, st>>>(
+        reinterpret_cast<const float4*>(ws), static_cast<T*>(out), splits, quads, fits);
   } else {
-    const size_t total = (size_t)taps * c * cols;
+    const size_t total = (size_t)taps * c * cols, all = total * fits;
     up_conv_wgrad_sum_rows_kernel<T>
-        <<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
-            ws, static_cast<T*>(out), splits, cols, ld, total);
+        <<<(unsigned)((all + threads - 1) / threads), threads, 0, st>>>(
+            ws, static_cast<T*>(out), splits, cols, ld, total, fits);
   }
   return (int)cudaGetLastError();
 }
 
-// Every entry: the products into the slabs, then the sum pass.
+// Every entry: the products into the slabs, then the sum pass. The N
+// images are `fits` runs of N / fits, each summed into an output of its own.
 template <int NT>
-int wgrad_mma(const void* x, const void* dz, void* ws, void* out, int n, int h, int w, int c,
-              int cols, int splits, int per, int out_is_f32, void* stream) {
+int wgrad_mma(const void* x, const void* dz, void* ws, void* out, int fits, int n, int h,
+              int w, int c, int cols, int splits, int per, int out_is_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long tiles = (long long)n * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
-  if (n < 1 || h < 1 || w < 1 || c < 1 || cols < 1 || splits < 1 || per < 1 ||
+  if (fits < 1 || fits > 65535 || n < 1 || n % fits != 0) return (int)cudaErrorInvalidValue;
+  const int n_fit = n / fits;
+  const long long tiles = (long long)n_fit * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  if (h < 1 || w < 1 || c < 1 || cols < 1 || splits < 1 || per < 1 ||
       (long long)splits * per < tiles || tiles > INT32_MAX || !aligned16(ws) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
@@ -396,11 +417,11 @@ int wgrad_mma(const void* x, const void* dz, void* ws, void* out, int n, int h, 
   const int ld = (cols + 3) / 4 * 4;
   // 16-byte copies need whole, aligned 8-element groups in x's and dz's rows
   const int rc = c % 8 == 0 && cols % 8 == 0 && aligned16(x) && aligned16(dz)
-                     ? launch_mma<NT, true>(xb, db, wsf, n, h, w, c, cols, ld, splits, per, st)
-                     : launch_mma<NT, false>(xb, db, wsf, n, h, w, c, cols, ld, splits, per, st);
+      ? launch_mma<NT, true>(xb, db, wsf, fits, n_fit, h, w, c, cols, ld, splits, per, st)
+      : launch_mma<NT, false>(xb, db, wsf, fits, n_fit, h, w, c, cols, ld, splits, per, st);
   if (rc != 0) return rc;
-  return out_is_f32 ? launch_sum<float>(wsf, out, splits, NT * NT, c, cols, ld, st)
-                    : launch_sum<bf16>(wsf, out, splits, NT * NT, c, cols, ld, st);
+  return out_is_f32 ? launch_sum<float>(wsf, out, fits, splits, NT * NT, c, cols, ld, st)
+                    : launch_sum<bf16>(wsf, out, fits, splits, NT * NT, c, cols, ld, st);
 }
 
 }  // namespace
@@ -408,25 +429,26 @@ int wgrad_mma(const void* x, const void* dz, void* ws, void* out, int n, int h, 
 // -- C interface ---------------------------------------------------------------
 // All launch on `stream`, do not synchronise, allocate nothing, and return
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue if the splits
-// of `per` pixel tiles do not cover the N*ceil(h/8)*ceil(w/16) tiles. The
-// inputs are bf16 and dense; `*_is_f32` selects float (else bf16) for the
-// output. `ws` holds splits * taps * C * ld floats (taps 9, or 1 for K6),
-// ld = the column count rounded up to 4; ws and the output are 16-byte
-// aligned.
+// of `per` pixel tiles do not cover a fit's (N/fits)*ceil(h/8)*ceil(w/16)
+// tiles. The inputs are bf16 and dense; `*_is_f32` selects float (else
+// bf16) for the output. `ws` holds fits * splits * taps * C * ld floats
+// (taps 9, or 1 for K6), ld = the column count rounded up to 4; ws and the
+// output are 16-byte aligned.
 
-// K3: xp (N,h+2,w+2,C), dzq (N,h,w,4F) -> de (3,3,C,4F). The wrapper
-// rounds an f32 xp to bf16 once.
-extern "C" int dip_up_conv_wgrad(const void* xp, const void* dzq, void* ws, void* de, int n,
-                                 int h, int w, int c, int f, int splits, int per,
-                                 int de_is_f32, void* stream) {
-  return wgrad_mma<3>(xp, dzq, ws, de, n, h, w, c, 4 * f, splits, per, de_is_f32, stream);
+// K3: xp (N,h+2,w+2,C), dzq (N,h,w,4F) -> de (fits,3,3,C,4F), fit b summing
+// images [b*N/fits, (b+1)*N/fits). The wrapper rounds an f32 xp to bf16 once.
+extern "C" int dip_up_conv_wgrad(const void* xp, const void* dzq, void* ws, void* de,
+                                 int fits, int n, int h, int w, int c, int f, int splits,
+                                 int per, int de_is_f32, void* stream) {
+  return wgrad_mma<3>(xp, dzq, ws, de, fits, n, h, w, c, 4 * f, splits, per, de_is_f32,
+                      stream);
 }
 
 // K5 in bf16: x (N,h+2,w+2,Ci) padded, g (N,h,w,Co) -> dw (3,3,Ci,Co).
 extern "C" int dip_wgrad3x3_mma(const void* x, const void* g, void* ws, void* dw, int n, int h,
                                 int w, int ci, int co, int splits, int per, int dw_is_f32,
                                 void* stream) {
-  return wgrad_mma<3>(x, g, ws, dw, n, h, w, ci, co, splits, per, dw_is_f32, stream);
+  return wgrad_mma<3>(x, g, ws, dw, 1, n, h, w, ci, co, splits, per, dw_is_f32, stream);
 }
 
 // K6 in bf16: x (N,h,w,Ci), g (N,h,w,Co) -> dw (1,1,Ci,Co); ws holds
@@ -434,5 +456,5 @@ extern "C" int dip_wgrad3x3_mma(const void* x, const void* g, void* ws, void* dw
 extern "C" int dip_wgrad1x1_mma(const void* x, const void* g, void* ws, void* dw, int n, int h,
                                 int w, int ci, int co, int splits, int per, int dw_is_f32,
                                 void* stream) {
-  return wgrad_mma<1>(x, g, ws, dw, n, h, w, ci, co, splits, per, dw_is_f32, stream);
+  return wgrad_mma<1>(x, g, ws, dw, 1, n, h, w, ci, co, splits, per, dw_is_f32, stream);
 }

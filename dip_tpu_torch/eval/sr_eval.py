@@ -2,7 +2,10 @@
 dip_tpu/eval/sr_eval.py): Y-channel PSNR inside a 4-px margin of the
 non-zero bounding box of the DIP output, per image and averaged. Takes a
 directory of HR images, runs the whole SR pipeline on each, and works
-offline.
+offline. `eval_sr_dataset` fits the images one after another;
+`eval_sr_dataset_sharded` (the fleet) fits each group of same-shape images
+through one BatchEngine over a device mesh, seeded image by image as the
+sequential evaluation seeds them.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 
 from dip_tpu_torch.ops.losses import psnr_y
 from dip_tpu_torch.tasks import super_resolve
-from dip_tpu_torch.tasks.base import run_task
+from dip_tpu_torch.tasks.base import make_input, run_task
 from dip_tpu_torch.utils.image_io import hwc_to_nhwc, nhwc_to_hwc
 
 SET14 = ["baboon", "barbara", "bridge", "coastguard", "comic", "face",
@@ -82,4 +85,61 @@ def eval_sr_dataset(
         if verbose:
             print(f"{name}: {score:.3f} dB")
     result.mean_psnr_y = float(np.mean(scores)) if scores else 0.0
+    return result
+
+
+def eval_sr_dataset_sharded(
+    image_dir: str,
+    mesh,
+    factor: int = 4,
+    num_iter: int | None = None,
+    seed: int = 0,
+    verbose: bool = True,
+) -> SrEvalResult:
+    """Fleet evaluation over `mesh` (parallel.mesh.Mesh): the images are
+    grouped by LR shape, and each group runs through one BatchEngine, as
+    mesh-size sub-batches (one fit per device a pass). The last sub-batch
+    is padded by repeating its last image, whose padding scores are
+    dropped. Image i of the sorted list takes seed `seed + i` (its z from
+    that seed, its weights and jitter from seed + i + 1 on), as
+    eval_sr_dataset seeds it, so on a one-device mesh the fleet fits what
+    the sequential evaluation fits. Scores come back in the sorted order."""
+    from dip_tpu_torch.parallel.batch import BatchEngine
+
+    paths = sorted(glob.glob(os.path.join(image_dir, "*")))
+    groups: dict[tuple, list] = {}
+    for i, path in enumerate(paths):
+        imgs = super_resolve.load_lr_hr(path, -1, factor, "CROP")
+        groups.setdefault(imgs["LR_np"].shape, []).append((i, path, imgs))
+
+    scores: dict[int, tuple[str, float]] = {}
+    for items in groups.values():
+        n_real = len(items)
+        while len(items) % mesh.size:
+            items = items + [items[-1]]  # pad the last sub-batch
+        spec = super_resolve.task(hwc_to_nhwc(items[0][2]["LR_np"]), factor=factor,
+                                  num_iter=num_iter)
+        beng = BatchEngine(spec.model, spec.loss_fn, spec.cfg, spec.metrics_fn, mesh=mesh)
+        outs = []
+        for lo in range(0, len(items), mesh.size):  # one fit per device a pass
+            sub = items[lo:lo + mesh.size]
+            zs = torch.stack([make_input(spec, torch.Generator().manual_seed(seed + i), "cpu")
+                              for i, _, _ in sub])
+            auxs = {"lr": torch.stack([torch.as_tensor(hwc_to_nhwc(im["LR_np"]))
+                                       for _, _, im in sub])}
+            state = beng.init_state([seed + i + 1 for i, _, _ in sub], zs)
+            state, _ = beng.run(state, auxs)
+            outs.append(beng.render(state).cpu().numpy())  # (mesh size, 1, H, W, C)
+        outs = np.concatenate(outs)
+        for (i, path, imgs), out in zip(items[:n_real], outs):
+            pred = np.clip(nhwc_to_hwc(out), 0, 1)
+            scores[i] = (os.path.splitext(os.path.basename(path))[0],
+                         psnr_y_bbox_protocol(imgs["HR_np"], pred))
+    result = SrEvalResult()
+    for i in sorted(scores):
+        name, score = scores[i]
+        result.per_image[name] = score
+        if verbose:
+            print(f"{name}: {score:.3f} dB")
+    result.mean_psnr_y = float(np.mean(list(result.per_image.values()))) if scores else 0.0
     return result

@@ -380,6 +380,10 @@ class Engine:
         `slot` of `table` and the slot moved on, all on the device."""
         _write_row(self._advance(state, aux), keys, table, slot)
 
+    def _generators(self, state: FitState) -> list[torch.Generator]:
+        """The generators a step draws from (a capture registers them)."""
+        return [g for g in (state.generator, state.param_generator) if g is not None]
+
     def capture(self, state: FitState, aux: Any) -> None:
         """On a CUDA device, unless the state has a graph for `aux` already:
         take the fit's next step eagerly (what the capture needs exists
@@ -397,10 +401,12 @@ class Engine:
         if self._stream is None or (g is not None and g.aux is aux):
             return
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             _, metrics = self.step(state, aux)
             keys = tuple(metrics)
-            table = torch.zeros((self.cfg.log_every, len(keys)), device=self.device)
+            # a row a step: the metrics, each of the shape the step gives it
+            table = torch.zeros((self.cfg.log_every, len(keys), *metrics[keys[0]].shape),
+                                device=self.device)
             slot = torch.zeros(1, dtype=torch.int64, device=self.device)
             _write_row(metrics, keys, table, slot)
             state.graph = None
@@ -408,9 +414,8 @@ class Engine:
             # are gone back to the card first (this waits for the device)
             torch.cuda.empty_cache()
             graph = torch.cuda.CUDAGraph()
-            for gen in (state.generator, state.param_generator):
-                if gen is not None:
-                    graph.register_generator_state(gen)
+            for gen in self._generators(state):
+                graph.register_generator_state(gen)
             before = launches.counts()
             graph.capture_begin()
             try:
@@ -443,7 +448,7 @@ class Engine:
         self.capture(state, aux)
         g = state.graph
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             if g.pending == 0:
                 g.slot.zero_()
             for _ in range(g.pending, n):

@@ -215,3 +215,25 @@ def torch_trainable_to_flax(params: Mapping[str, torch.Tensor],
             a = params[k].detach().cpu().to(torch.float32).numpy().copy()
             out[k] = {"kernel": a} if k == "down" else a
     return out
+
+
+def _fit_slice(tree: Mapping, i: int) -> dict:
+    """Fit i of a batched numpy tree (every leaf with a leading fit axis)."""
+    return {k: _fit_slice(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+            for k, v in tree.items()}
+
+
+def _fits_of(tree: Mapping) -> int:
+    for v in tree.values():
+        return _fits_of(v) if isinstance(v, Mapping) else np.asarray(v).shape[0]
+    raise KeyError("an empty tree has no fits")
+
+
+def flax_batch_to_torch(trainable: Mapping,
+                        model: nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """A batched JAX trainable pytree (dip_tpu's BatchEngine params: numpy
+    leaves with a leading fit axis) -> the port's stacked leaves, each
+    (B, ...): flax_trainable_to_torch of each fit's slice, stacked."""
+    per_fit = [flax_trainable_to_torch(_fit_slice(trainable, i), model)
+               for i in range(_fits_of(trainable))]
+    return {k: torch.stack([p[k] for p in per_fit]) for k in per_fit[0]}

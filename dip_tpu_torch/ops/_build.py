@@ -104,11 +104,14 @@ def load() -> ctypes.CDLL:
         build_log = _build(so)
     lib = ctypes.CDLL(str(so))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dip_up_conv_fwd.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 6 + [ptr]
-    # dzq, e, workspace, dxp, n, h, w, c, f, splits, steps a split, f32, stream
-    lib.dip_up_conv_dgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
-    # xp, dzq, workspace, de, n, h, w, c, f, splits, tiles a split, f32, stream
-    lib.dip_up_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
+    # xp, e, carry, out, fits, n, h, w, c, f, f32, stream
+    lib.dip_up_conv_fwd.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 7 + [ptr]
+    # dzq, e, workspace, dxp, fits, n, h, w, c, f, splits, steps a split, f32,
+    # stream
+    lib.dip_up_conv_dgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
+    # xp, dzq, workspace, de, fits, n, h, w, c, f, splits, tiles a split, f32,
+    # stream
+    lib.dip_up_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
     # x, g, workspace, dW, n, h, w, ci, co, splits, tiles a split, f32, stream
     lib.dip_wgrad3x3_mma.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
     lib.dip_wgrad1x1_mma.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]

@@ -68,12 +68,23 @@ def s2d_pack(x: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Ten
 class S2DPack(torch.autograd.Function):
     """s2d_pack with its exact inverse permutation as the backward (plain
     PyTorch, as the JAX package leaves that backward to XLA), returned in
-    the input's dtype."""
+    the input's dtype. Under torch.func.vmap the fits fold into N: one
+    launch for all of them."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, out_dtype: torch.dtype | None) -> torch.Tensor:
-        ctx.shape, ctx.dtype = tuple(x.shape), x.dtype
+    def forward(x: torch.Tensor, out_dtype: torch.dtype | None) -> torch.Tensor:
         return s2d_pack(x, out_dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        x, _ = inputs
+        ctx.shape, ctx.dtype = tuple(x.shape), x.dtype
+
+    @staticmethod
+    def vmap(info, in_dims, x, out_dtype):
+        x = x.movedim(in_dims[0], 0)
+        out = S2DPack.apply(x.reshape(-1, *x.shape[2:]), out_dtype)
+        return out.reshape(x.shape[0], -1, *out.shape[1:]), 0
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):

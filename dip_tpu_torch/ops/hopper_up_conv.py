@@ -21,6 +21,15 @@ The backward's HR -> phase-major transform of the cotangent dz (with its
 bf16 cast) is K4, the packed space-to-depth kernel of ops/hopper_s2d.py:
 the JAX package's `seam_dz='pallas'` route, one pass over dz.
 
+The fit axis (parallel/batch.py's BatchEngine, B independent fits in one
+program): each wrapper also takes a batched e (B,3,3,C,4F) with B runs of
+N images in xp, dzq and the output, image n taking e[n // N], and wgrad
+then gives de (B,3,3,C,4F), each fit summing only its own images. One
+launch serves all B fits; the split plans are a fit's, so a fit's bits do
+not depend on B, and B = 1 is the single-e launch. Under torch.func.vmap,
+UpConv3x3's vmap rule calls UpConv3x3Fits on the physical tensors where e
+is batched, and folds the fits into N where only xp is.
+
 Numerics follow the TPU kernels' mixed mode (pallas_up_conv._mx): the
 operands are rounded to bf16, every sum is f32, and results come back in
 xp's dtype. The plain versions below do exactly that in PyTorch (round,
@@ -28,8 +37,9 @@ then compute in f32), so kernel and plain version differ only in the order
 of the f32 sums.
 
 Each wrapper takes its plain version only when every tensor it is given
-lies on the CPU. On CUDA tensors it launches the kernel or raises; any
-other mix of devices raises. Each launch adds one to `LAUNCHES`; a
+lies on the CPU (with a fit axis, the plain version applied per fit). On
+CUDA tensors it launches the kernel or raises; any other mix of devices
+raises. Each launch adds one to `LAUNCHES`, with a fit axis or without; a
 forward with a carry counts as "fwd_carry".
 """
 
@@ -63,6 +73,10 @@ def _mx(a: torch.Tensor) -> torch.Tensor:
 
 def fwd_plain(xp: torch.Tensor, e: torch.Tensor,
               carry: torch.Tensor | None = None) -> torch.Tensor:
+    if e.dim() == 5:  # a fit axis: each fit's images through its own e
+        carries = [None] * len(e) if carry is None else carry.chunk(len(e))
+        return torch.cat([fwd_plain(x, ee, cy) for x, ee, cy in
+                          zip(xp.chunk(len(e)), e, carries)])
     n, hp, wp, _ = xp.shape
     h, w = hp - 2, wp - 2
     f4 = e.shape[-1]
@@ -78,6 +92,8 @@ def fwd_plain(xp: torch.Tensor, e: torch.Tensor,
 
 def dgrad_plain(dzq: torch.Tensor, e: torch.Tensor,
                 out_dtype: torch.dtype) -> torch.Tensor:
+    if e.dim() == 5:
+        return torch.cat([dgrad_plain(d, ee, out_dtype) for d, ee in zip(dzq.chunk(len(e)), e)])
     n, h, w, _ = dzq.shape
     c = e.shape[2]
     dzp = F.pad(_mx(dzq), (0, 0, 2, 2, 2, 2))  # dacc is zero outside 0..h-1
@@ -90,7 +106,11 @@ def dgrad_plain(dzq: torch.Tensor, e: torch.Tensor,
     return acc.to(out_dtype)
 
 
-def wgrad_plain(xp: torch.Tensor, dzq: torch.Tensor) -> torch.Tensor:
+def wgrad_plain(xp: torch.Tensor, dzq: torch.Tensor, fits: int | None = None) -> torch.Tensor:
+    """de (3,3,C,4F); with `fits`, (fits,3,3,C,4F), fit b's from its own
+    images."""
+    if fits is not None:
+        return torch.stack([wgrad_plain(x, d) for x, d in zip(xp.chunk(fits), dzq.chunk(fits))])
     _, hp, wp, c = xp.shape
     h, w = hp - 2, wp - 2
     x, dz = _mx(xp), _mx(dzq)
@@ -118,21 +138,35 @@ def _check_dtype(name: str, t: torch.Tensor, allowed) -> None:
         raise TypeError(f"{name} has dtype {t.dtype}; expected one of {allowed}")
 
 
+def _fits(e: torch.Tensor, n: int) -> int:
+    """The fits of a seam kernel e: 1 for (3,3,C,4F), B for (B,3,3,C,4F),
+    whose B must divide the N images."""
+    if e.dim() not in (4, 5) or e.shape[-4:-2] != (3, 3):
+        raise ValueError(f"e (3,3,C,4F) or (B,3,3,C,4F) expected, got {tuple(e.shape)}")
+    fits = 1 if e.dim() == 4 else e.shape[0]
+    if fits < 1 or n % fits:
+        raise ValueError(f"{fits} fits do not divide {n} images")
+    return fits
+
+
 def _seam_dims(xp: torch.Tensor, e: torch.Tensor) -> tuple[int, ...]:
-    if xp.dim() != 4 or e.dim() != 4 or e.shape[:2] != (3, 3):
-        raise ValueError(f"xp (N,h+2,w+2,C) and e (3,3,C,4F) expected, got "
-                         f"{tuple(xp.shape)} and {tuple(e.shape)}")
+    """(fits, N, h, w, C, F) of xp (N,h+2,w+2,C) and e (3,3,C,4F) or
+    (B,3,3,C,4F)."""
+    if xp.dim() != 4:
+        raise ValueError(f"xp (N,h+2,w+2,C) expected, got {tuple(xp.shape)}")
     n, hp, wp, c = xp.shape
-    if e.shape[2] != c or e.shape[3] % 4 or hp < 4 or wp < 4:
+    fits = _fits(e, n)
+    if e.shape[-2] != c or e.shape[-1] % 4 or hp < 4 or wp < 4:
         raise ValueError(f"bad seam shapes xp {tuple(xp.shape)}, e {tuple(e.shape)}")
-    return n, hp - 2, wp - 2, c, e.shape[3] // 4
+    return fits, n, hp - 2, wp - 2, c, e.shape[-1] // 4
 
 
 def fwd(xp: torch.Tensor, e: torch.Tensor,
         carry: torch.Tensor | None = None) -> torch.Tensor:
     """Forward seam: xp (N,h+2,w+2,C), e (3,3,C,4F) -> (N,2h,2w,F), plus
-    `carry` (N,2h,2w,F) in xp's dtype when given."""
-    n, h, w, c, f = _seam_dims(xp, e)
+    `carry` (N,2h,2w,F) in xp's dtype when given. With e (B,3,3,C,4F),
+    image n takes e[n // (N/B)]."""
+    fits, n, h, w, c, f = _seam_dims(xp, e)
     _check_dtype("xp", xp, _FLOATS)
     _check_dtype("e", e, _FLOATS)
     tensors = {"xp": xp, "e": e}
@@ -149,7 +183,7 @@ def fwd(xp: torch.Tensor, e: torch.Tensor,
     out = torch.empty((n, 2 * h, 2 * w, f), dtype=xp.dtype, device=xp.device)
     rc = _build.load().dip_up_conv_fwd(
         xb.data_ptr(), eb.data_ptr(), None if carry is None else carry.data_ptr(),
-        out.data_ptr(), n, h, w, c, f, int(xp.dtype == torch.float32), _build.stream())
+        out.data_ptr(), fits, n, h, w, c, f, int(xp.dtype == torch.float32), _build.stream())
     _build.raise_on(rc, "seam fwd")
     LAUNCHES["fwd" if carry is None else "fwd_carry"] += 1
     return out
@@ -203,26 +237,28 @@ def dgrad_plan(n: int, h: int, w: int, c: int, f: int) -> DgradPlan:
 
 def dgrad(dzq: torch.Tensor, e: torch.Tensor,
           out_dtype: torch.dtype) -> torch.Tensor:
-    """Data gradient: phase-major dzq (N,h,w,4F) bf16 -> dxp (N,h+2,w+2,C)."""
-    if (dzq.dim() != 4 or e.dim() != 4 or e.shape[:2] != (3, 3)
-            or dzq.shape[3] != e.shape[3] or dzq.shape[3] % 4):
+    """Data gradient: phase-major dzq (N,h,w,4F) bf16 -> dxp (N,h+2,w+2,C);
+    with e (B,3,3,C,4F), image n through e[n // (N/B)], split as one fit's
+    N/B images are."""
+    if dzq.dim() != 4 or dzq.shape[3] != e.shape[-1] or dzq.shape[3] % 4:
         raise ValueError(f"bad dgrad shapes dzq {tuple(dzq.shape)}, e {tuple(e.shape)}")
     n, h, w, f4 = dzq.shape
-    c = e.shape[2]
+    fits = _fits(e, n)
+    c = e.shape[-2]
     _check_dtype("dzq", dzq, (_BF16,))
     _check_dtype("e", e, _FLOATS)
     if out_dtype not in _FLOATS:
         raise TypeError(f"out_dtype {out_dtype} not supported")
     if _on_cpu(dzq=dzq, e=e):
         return dgrad_plain(dzq, e, out_dtype)
-    plan = dgrad_plan(n, h, w, c, f4 // 4)
+    plan = dgrad_plan(n // fits, h, w, c, f4 // 4)
     eb = e.to(_BF16)
-    ws = (None if plan.workspace is None
-          else torch.empty(plan.workspace, dtype=torch.float32, device=dzq.device))
+    ws = (None if plan.workspace is None else torch.empty(
+        (plan.splits, n, h + 2, w + 2, c), dtype=torch.float32, device=dzq.device))
     dxp = torch.empty((n, h + 2, w + 2, c), dtype=out_dtype, device=dzq.device)
     rc = _build.load().dip_up_conv_dgrad(
         dzq.data_ptr(), eb.data_ptr(), None if ws is None else ws.data_ptr(), dxp.data_ptr(),
-        n, h, w, c, f4 // 4, plan.splits, plan.steps_per_split,
+        fits, n, h, w, c, f4 // 4, plan.splits, plan.steps_per_split,
         int(out_dtype == torch.float32), _build.stream())
     _build.raise_on(rc, "seam dgrad")
     LAUNCHES["dgrad"] += 1
@@ -291,25 +327,31 @@ def wgrad_plan(n: int, h: int, w: int, c: int, f: int) -> WgradPlan:
     return wgrad3x3_plan(n, h, w, c, 4 * f)
 
 
-def wgrad(xp: torch.Tensor, dzq: torch.Tensor) -> torch.Tensor:
-    """Weight gradient of e: xp, phase-major dzq -> de (3,3,C,4F) in xp's dtype."""
+def wgrad(xp: torch.Tensor, dzq: torch.Tensor, fits: int | None = None) -> torch.Tensor:
+    """Weight gradient of e: xp, phase-major dzq -> de (3,3,C,4F) in xp's
+    dtype; with `fits` = B, de (B,3,3,C,4F), fit b's summed over its own run
+    of N/B images only, split as one fit's images are."""
     if xp.dim() != 4 or dzq.dim() != 4 or dzq.shape[:3] != (
             xp.shape[0], xp.shape[1] - 2, xp.shape[2] - 2) or dzq.shape[3] % 4:
         raise ValueError(f"bad wgrad shapes xp {tuple(xp.shape)}, dzq {tuple(dzq.shape)}")
     n, hp, wp, c = xp.shape
     h, w, f4 = hp - 2, wp - 2, dzq.shape[3]
+    if fits is not None and (fits < 1 or n % fits):
+        raise ValueError(f"{fits} fits do not divide {n} images")
     _check_dtype("xp", xp, _FLOATS)
     _check_dtype("dzq", dzq, (_BF16,))
     if _on_cpu(xp=xp, dzq=dzq):
-        return wgrad_plain(xp, dzq)
-    plan = wgrad_plan(n, h, w, c, f4 // 4)
+        return wgrad_plain(xp, dzq, fits)
+    b = 1 if fits is None else fits
+    plan = wgrad_plan(n // b, h, w, c, f4 // 4)
     # operands are bf16 in both modes (as _wgrad's _mx): an f32 xp is rounded
     # once here, so one bf16 main loop serves both; de keeps xp's dtype
     xb = xp.to(_BF16)
-    ws = torch.empty(plan.workspace, dtype=torch.float32, device=xp.device)
-    de = torch.empty((3, 3, c, f4), dtype=xp.dtype, device=xp.device)
+    ws = torch.empty((b, *plan.workspace), dtype=torch.float32, device=xp.device)
+    de = torch.empty((3, 3, c, f4) if fits is None else (fits, 3, 3, c, f4), dtype=xp.dtype,
+                     device=xp.device)
     rc = _build.load().dip_up_conv_wgrad(
-        xb.data_ptr(), dzq.data_ptr(), ws.data_ptr(), de.data_ptr(), n, h, w, c, f4 // 4,
+        xb.data_ptr(), dzq.data_ptr(), ws.data_ptr(), de.data_ptr(), b, n, h, w, c, f4 // 4,
         plan.splits, plan.tiles_per_split, int(xp.dtype == torch.float32), _build.stream())
     _build.raise_on(rc, "seam wgrad")
     LAUNCHES["wgrad"] += 1
@@ -326,24 +368,81 @@ def phase_major(dz: torch.Tensor) -> torch.Tensor:
     return hopper_s2d.s2d_pack_plain(dz, _BF16)
 
 
+def _batch_first(t: torch.Tensor | None, dim: int | None, size: int) -> torch.Tensor | None:
+    """A vmap rule's physical tensor with its batch axis first (an
+    unbatched one expanded to `size`)."""
+    if t is None:
+        return None
+    return t.movedim(dim, 0) if dim is not None else t.expand(size, *t.shape)
+
+
+def _fold(t: torch.Tensor | None) -> torch.Tensor | None:
+    """(B, N, ...) -> contiguous (B*N, ...)."""
+    return None if t is None else t.reshape(-1, *t.shape[2:]).contiguous()
+
+
 class UpConv3x3(torch.autograd.Function):
     """Seam on the edge-padded LR input: xp (N,h+2,w+2,C), e (3,3,C,4F) ->
     interleaved HR (N,2h,2w,F), plus the carry-in if one is given;
     backward packs dz phase-major in bf16 (K4), runs dgrad and wgrad, and
-    d(carry) = dz."""
+    d(carry) = dz. Under torch.func.vmap over B fits, a batched e runs
+    UpConv3x3Fits on the B*N images (one launch of each kernel for all the
+    fits), and an unbatched e folds the fits into N."""
 
     @staticmethod
-    def forward(ctx, xp: torch.Tensor, e: torch.Tensor,
-                carry: torch.Tensor | None) -> torch.Tensor:
+    def forward(xp: torch.Tensor, e: torch.Tensor, carry: torch.Tensor | None) -> torch.Tensor:
+        return fwd(xp, e, carry)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        xp, e, carry = inputs
         ctx.save_for_backward(xp, e)
         ctx.has_carry = carry is not None
-        return fwd(xp, e, carry)
 
     @staticmethod
     def backward(ctx, dz: torch.Tensor):
         xp, e = ctx.saved_tensors
         dzq = hopper_s2d.s2d_pack(dz, _BF16)
         return (dgrad(dzq, e, xp.dtype), wgrad(xp, dzq).to(e.dtype),
+                dz if ctx.has_carry else None)
+
+    @staticmethod
+    def vmap(info, in_dims, xp, e, carry):
+        b = info.batch_size
+        x_dim, e_dim, c_dim = in_dims
+        xp = _batch_first(xp, x_dim, b)
+        carry = _batch_first(carry, c_dim, b)
+        n = xp.shape[1]
+        if e_dim is None:
+            out = UpConv3x3.apply(_fold(xp), e, _fold(carry))
+        else:
+            out = UpConv3x3Fits.apply(_fold(xp), e.movedim(e_dim, 0).contiguous(),
+                                      _fold(carry))
+        return out.reshape(b, n, *out.shape[1:]), 0
+
+
+class UpConv3x3Fits(torch.autograd.Function):
+    """B fits' seams at once: xp (B*N,h+2,w+2,C), e (B,3,3,C,4F), the
+    carry-in (B*N,2h,2w,F) or None -> (B*N,2h,2w,F), fit b's N images
+    through e[b]. One launch of K1 forward; backward one K4 over the B*N
+    cotangents, one K2 and one K3 with the fit axis (de (B,3,3,C,4F), each
+    fit's from its own images)."""
+
+    @staticmethod
+    def forward(xp: torch.Tensor, e: torch.Tensor, carry: torch.Tensor | None) -> torch.Tensor:
+        return fwd(xp, e, carry)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        xp, e, carry = inputs
+        ctx.save_for_backward(xp, e)
+        ctx.has_carry = carry is not None
+
+    @staticmethod
+    def backward(ctx, dz: torch.Tensor):
+        xp, e = ctx.saved_tensors
+        dzq = hopper_s2d.s2d_pack(dz, _BF16)
+        return (dgrad(dzq, e, xp.dtype), wgrad(xp, dzq, e.shape[0]).to(e.dtype),
                 dz if ctx.has_carry else None)
 
 

@@ -45,12 +45,23 @@ def _fold(g: torch.Tensor, p: int, dim: int, mode: str) -> torch.Tensor:
 
 class _EdgePad(torch.autograd.Function):
     """Reflection or replication padding of NHWC x by (ph, pw), with a
-    deterministic backward."""
+    deterministic backward. Under torch.func.vmap the fits fold into N, and
+    the backward stays this one."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, ph: int, pw: int, mode: str) -> torch.Tensor:
-        ctx.pads, ctx.mode = (ph, pw), mode
+    def forward(x: torch.Tensor, ph: int, pw: int, mode: str) -> torch.Tensor:
         return F.pad(x.permute(0, 3, 1, 2), (pw, pw, ph, ph), mode=mode).permute(0, 2, 3, 1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        _, ph, pw, mode = inputs
+        ctx.pads, ctx.mode = (ph, pw), mode
+
+    @staticmethod
+    def vmap(info, in_dims, x, ph, pw, mode):
+        x = x.movedim(in_dims[0], 0)
+        out = _EdgePad.apply(x.reshape(-1, *x.shape[2:]), ph, pw, mode)
+        return out.reshape(x.shape[0], -1, *out.shape[1:]), 0
 
     @staticmethod
     @once_differentiable

@@ -209,16 +209,28 @@ class _Downsample(torch.autograd.Function):
     """Forward: the plain version on the CPU, the Hopper kernel on a CUDA
     tensor. Backward (linear, so independent of x): dX = (S_h P_h)^T . g .
     (S_w P_w), the adjoint of the banded products with the replication
-    pad's fold built into the cached matrices."""
+    pad's fold built into the cached matrices. Under torch.func.vmap the
+    fits fold into N: one kernel launch for all of them."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, spec: tuple, preserve_size: bool) -> torch.Tensor:
+    def forward(x: torch.Tensor, spec: tuple, preserve_size: bool) -> torch.Tensor:
         p, h_out, w_out = _geometry(x.shape, spec, preserve_size)
-        ctx.spec, ctx.hw, ctx.p = spec, (x.shape[1], x.shape[2]), p
         if x.device.type == "cpu":
             return downsample_plain(x, spec[0], spec[1], spec[2], preserve_size, *spec[3:])
         taps = device_const(_profile, spec, torch.float32, x.device)
         return hopper_resample.downsample_fused(x.contiguous(), taps, spec[0], p, h_out, w_out)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        x, spec, preserve_size = inputs
+        ctx.spec, ctx.hw = spec, (x.shape[1], x.shape[2])
+        ctx.p = _geometry(x.shape, spec, preserve_size)[0]
+
+    @staticmethod
+    def vmap(info, in_dims, x, spec, preserve_size):
+        x = x.movedim(in_dims[0], 0)
+        out = _Downsample.apply(x.reshape(-1, *x.shape[2:]), spec, preserve_size)
+        return out.reshape(x.shape[0], -1, *out.shape[1:]), 0
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):

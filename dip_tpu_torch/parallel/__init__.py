@@ -1,6 +1,9 @@
-"""Multi-fit scheduling on one device (counterpart of dip_tpu/parallel;
-the mesh and the batched engine are not ported yet)."""
+"""Many fits at once (counterpart of dip_tpu/parallel): BatchEngine runs B
+fits of one shape as one vmapped program per device of a mesh; FitQueue
+round-robins separate fits on one device."""
 
+from dip_tpu_torch.parallel.batch import BatchEngine
+from dip_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from dip_tpu_torch.parallel.queue import FitQueue
 
-__all__ = ["FitQueue"]
+__all__ = ["make_mesh", "shard_batch", "BatchEngine", "FitQueue"]

@@ -1,1 +1,2 @@
-"""Helpers: the network input, image I/O and the inpainting masks."""
+"""Helpers: the network input, image I/O, the inpainting masks and image
+grids."""

@@ -161,14 +161,14 @@ def test_several_images_go_through_fitqueue(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,what", [
     (["fit", "--task", "sr", "--image", "x.png", "--resample-impl", "xla"], "--resample-impl"),
-    (["eval-sr", "--dir", "x", "--fleet"], "--fleet"),
+    (["fit", "--task", "sr", "--image", "x.png", "--fleet"], "--fleet"),
     (["fit", "--image", "x.png"], "--task"),
     (["fit", "--task", "denoise"], "--image"),
 ])
 def test_refused_arguments(capsys, argv, what):
-    """The JAX package's layout and mesh switches are refused with a
-    message, not ignored; a fit needs a task, and an image unless it is
-    activation maximization."""
+    """The JAX package's layout switch is refused with a message, not
+    ignored, and so is --fleet anywhere but eval-sr; a fit needs a task,
+    and an image unless it is activation maximization."""
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert e.value.code == 2
@@ -187,9 +187,10 @@ def test_no_fallback_to_the_cpu():
 
 def test_module_entry_point():
     """`python -m dip_tpu_torch` is the CLI."""
-    res = subprocess.run([sys.executable, "-m", "dip_tpu_torch", "eval-sr", "--dir", "x",
-                          "--fleet"], cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert res.returncode == 2 and "--fleet" in res.stderr
+    res = subprocess.run([sys.executable, "-m", "dip_tpu_torch", "fit", "--task", "sr",
+                          "--image", "x.png", "--resample-impl", "xla"],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 2 and "--resample-impl" in res.stderr
 
 
 def test_synthetic_images_match_jax_and_repeat_across_processes():

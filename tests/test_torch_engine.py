@@ -177,7 +177,10 @@ def test_port_imports_no_jax():
             "dip_tpu_torch.pretrained, dip_tpu_torch.pretrained.perceptual, "
             "dip_tpu_torch.tasks.feature_inversion, dip_tpu_torch.tasks.activation_maximization, "
             "dip_tpu_torch.cli.main, dip_tpu_torch.data.imagenet_classes, "
-            "dip_tpu_torch.utils.profiling, dip_tpu_torch.__main__; "
+            "dip_tpu_torch.utils.profiling, dip_tpu_torch.__main__, "
+            "dip_tpu_torch.parallel.batch, dip_tpu_torch.parallel.mesh, "
+            "dip_tpu_torch.utils.grid; "
+            "from dip_tpu_torch.eval.sr_eval import eval_sr_dataset_sharded; "
             "assert 'jax' not in sys.modules and 'flax' not in sys.modules, "
             "sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
