@@ -112,7 +112,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
  17. [cli] `dip_tpu_torch.cli.main(["fit", "--task", "activation_max",
      "--num-iter", "30", "--log-every", "10"])` in this process, on its
      default device: returns 0, three falling loss lines, exact launches;
-     then `eval-sr --fleet` on the [fleet] images: rc 0, each score finite.
+     then `eval-sr --fleet` on the [fleet] images: rc 0, each score finite;
+ 18. [examples] on stand-ins of the reference's data/ at full size
+     (write_reference_standins, under build/): each of the nine examples'
+     main(argv) in this process on its default device, 20 iterations
+     (fit_batch: 8 fits at 256^2), in an empty directory: rc 0, finite
+     loss or PSNR lines, its images written, and exactly the launches its
+     fits imply;
+ 19. [recipes] `tools.reproduce --quick` over the 13 recipes in bf16, then
+     in f32, on the stand-ins: finite records, K1-K4 launched by every
+     recipe on a skip net and K7 by the SR ones; then `--quick-gate` in
+     f32 and in bf16: every bf16 best within 0.75 dB of the f32 best (the
+     PSNR floors, set on the reference's photos, printed beside the
+     readings and not held here);
+ 20. [train] `tools.train_backbone --quick`: AlexNet trained 400 steps at
+     batch 16 to a held-out accuracy of at least 0.9, its exported .pth
+     reloaded through pretrained/convert.py bit for bit the trained
+     state, and falling losses of feature inversion (fc6) and activation
+     maximization (fc8 class 3) on it, 60 iterations each; each phase's
+     wall is printed.
 The last three lines are the card line, a JSON object of the kernels (each
 with its launches on a main path, the seam kernels' fit-axis forms as rows
 of their own with their launches in [batch], error, times, and the bound of this
@@ -196,6 +214,28 @@ BATCH_GRAD_TOL = {"bfloat16": 1e-1, None: 5e-2}
 FLEET_IMAGES = {"a": (128, 128), "b": (128, 192), "c": (128, 128)}
 FLEET_STEPS = 40
 FLEET_DB_1, FLEET_DB = 0.1, 3.0
+# Stand-ins for the reference's data/ (the card has no photos): file ->
+# ((W, H) before the recipe's crop, PIL mode, the SYNTHETIC_SET image it
+# shows), the reference's layout and sizes (SURVEY.md:137, RESULTS.md:21-39).
+# A size that is not square is the centre of that image drawn square. The
+# no-flash image is the flash one's scene under a warm, dim light falling
+# off to one side, with sensor noise. Masks: lines of text for 'kate'
+# (utils/masks.get_text_mask), one central hole for 'vase', rows of small
+# holes for 'library'.
+STANDINS = {
+    "denoising/F16_GT.png": ((512, 512), "RGB", "disks"),
+    "denoising/snail.jpg": ((384, 256), "RGB", "texture"),
+    "inpainting/kate.png": ((512, 512), "RGB", "disks"),
+    "inpainting/vase.png": ((320, 320), "RGB", "gradient"),
+    "inpainting/library.png": ((704, 448), "RGB", "bands"),
+    "restoration/barbara.png": ((512, 512), "L", "texture"),
+    "sr/zebra_GT.png": ((584, 388), "RGB", "checker"),
+    "flash_no_flash/cave01_00_flash.jpg": ((774, 706), "RGB", "bands"),
+    "flash_no_flash/cave01_01_noflash.jpg": ((774, 706), "RGB", "bands"),
+}
+STANDIN_MASKS = {"inpainting/kate_mask.png": "inpainting/kate.png",
+                 "inpainting/vase_mask.png": "inpainting/vase.png",
+                 "inpainting/library_mask.png": "inpainting/library.png"}
 KERNELS = {
     "fwd": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
     "fwd_carry": ("dip_tpu_torch/csrc/up_conv_fwd.cu", "dip_tpu/ops/pallas_up_conv.py:233"),
@@ -995,7 +1035,7 @@ def wgrad_per_step(model) -> tuple[int, int]:
     from dip_tpu_torch.models import Skip
     from dip_tpu_torch.models.blocks import Conv
 
-    mode = model.conv_wgrad
+    mode = getattr(model, "conv_wgrad", "off")  # the identity net has no conv
     if mode == "off":
         return 0, 0
     convs = [m for m in model.modules() if isinstance(m, Conv)]
@@ -1592,6 +1632,85 @@ def fleet_images() -> Path:
     return d
 
 
+def _standin_size(name: str, scale: float) -> tuple[int, int]:
+    """The (W, H) of stand-in `name`: STANDINS' at scale 1; else each side
+    times `scale`, rounded to a multiple of 64 and at least 64 (256 for
+    'library', whose 6-scale net reflection-pads its 5x5 convs by 2 down to
+    1/64 of the image), which every recipe's crop and net take."""
+    size = STANDINS[STANDIN_MASKS.get(name, name)][0]
+    if scale == 1:
+        return size
+    least = 256 if "library" in name else 64
+    return tuple(max(least, int(round(d * scale / 64)) * 64) for d in size)
+
+
+def _standin_mask(name: str, w: int, h: int) -> np.ndarray:
+    """(h, w) uint8 mask, 255 where the pixel is kept."""
+    from dip_tpu_torch.utils.masks import get_text_mask
+
+    if name.endswith("kate_mask.png"):
+        keep = np.ones((h, w, 1), np.float32)
+        for y in range(h // 12, h, h // 6):
+            for x in (w // 16, w // 2 + w // 16):
+                keep *= get_text_mask((h, w, 1), font_size=max(8, h // 16), xy=(x, y))
+        return (keep[..., 0] * 255).astype(np.uint8)
+    keep = np.full((h, w), 255, np.uint8)
+    if name.endswith("vase_mask.png"):
+        keep[h // 3:2 * h // 3, w // 3:2 * w // 3] = 0
+    else:  # library: four rows of eight holes
+        s = max(4, h // 16)
+        for r in range(4):
+            for c in range(8):
+                y, x = (2 * r + 1) * h // 8 - s // 2, (2 * c + 1) * w // 16 - s // 2
+                keep[y:y + s, x:x + s] = 0
+    return keep
+
+
+def write_reference_standins(root: Path, scale: float = 1) -> dict:
+    """The reference's data/ layout under `root`, made anew from STANDINS
+    and STANDIN_MASKS at their sizes times `scale` (_standin_size). The
+    .jpg files are JPEG where this Pillow writes JPEG; elsewhere PNG data
+    under the same names, which Pillow reads back by content. Returns
+    {file: Pillow's format of it as read back}."""
+    from PIL import Image, features
+
+    from dip_tpu_torch.data.synthetic import synthetic_image
+
+    jpeg = features.check("jpg")
+    formats = {}
+    for name, (_, mode, image) in STANDINS.items():
+        w, h = _standin_size(name, scale)
+        side = max(w, h)
+        y0, x0 = (side - h) // 2, (side - w) // 2
+        img = synthetic_image(image, side, 1 if mode == "L" else 3)[y0:y0 + h, x0:x0 + w]
+        if "noflash" in name:
+            xx = np.linspace(0, 1, w, dtype=np.float32)[None, :, None]
+            light = (0.35 + 0.45 * (1 - xx)) * np.array([1.0, 0.8, 0.55], np.float32)
+            noise = np.random.default_rng(5).normal(scale=0.03, size=img.shape)
+            img = img * light + noise
+        elif "flash" in name:
+            img = img * np.array([0.95, 0.95, 1.0], np.float32)
+        ar = (np.clip(img, 0, 1) * 255).round().astype(np.uint8)
+        formats[name] = _save_standin(root / name, Image.fromarray(
+            ar[..., 0] if mode == "L" else ar, mode), jpeg)
+    for name in STANDIN_MASKS:
+        w, h = _standin_size(name, scale)
+        formats[name] = _save_standin(root / name, Image.fromarray(
+            _standin_mask(name, w, h), "L"), jpeg)
+    return formats
+
+
+def _save_standin(path: Path, img, jpeg: bool) -> str:
+    from PIL import Image
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    img.save(path, format="JPEG" if jpeg and path.suffix == ".jpg" else "PNG")
+    with Image.open(path) as back:
+        if back.size != img.size or back.mode != img.mode:
+            raise RuntimeError(f"{path} reads back as {back.size} {back.mode}")
+        return back.format
+
+
 def phase_fleet(dev: torch.device, card: str) -> None:
     """[fleet] eval_sr_dataset_sharded over make_mesh() (this card) on
     FLEET_IMAGES, x4, under deterministic cuDNN: the per-image names in
@@ -1914,6 +2033,279 @@ def phase_cli(dev: torch.device, card: str) -> None:
         raise RuntimeError(f"eval-sr --fleet ran no kernel: {delta}")
 
 
+EXAMPLE_STEPS = 20  # [examples]: iterations of each example
+EXAMPLE_BATCH, EXAMPLE_SIZE = 8, 256  # fit_batch's --batch and --size
+# [recipes]: the recipes without a skip net (no seam kernel) and those
+# with the SR loss (the downsample kernel too)
+ZOO_RECIPES = ("library_unet", "library_resnet")
+SR_RECIPES = ("zebra4", "zebra8", "prior_effect")
+TRAIN_ACC = 0.9  # [train]: the trained AlexNet's least held-out accuracy
+
+
+def standins() -> Path:
+    """The reference data's stand-ins (write_reference_standins) under
+    build/, made anew, with Pillow's format of each file logged; the
+    absolute path of their root."""
+    root = (Path("build") / "reference_standins").resolve()
+    formats = write_reference_standins(root)
+    log(f"[standins] {root}: " + ", ".join(f"{k} {v}" for k, v in formats.items()))
+    return root
+
+
+def _inside(path: Path) -> contextlib.chdir:
+    """`path`, made anew and empty, as the working directory."""
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return contextlib.chdir(path)
+
+
+def _call(prefix: str, fn, *args, **kw) -> tuple[object, str]:
+    """fn(*args, **kw) with its standard output captured and logged line by
+    line under `prefix`; returns (its result, the output)."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args, **kw), buf.getvalue()
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"[{prefix}] {line}")
+
+
+def _numbers(lines: list[str]) -> list[float]:
+    """The decimal numbers in `lines` (the values; an iteration count has
+    no point), nan and inf included."""
+    import re
+
+    return [float(v) for line in lines for v in re.findall(r"-?(?:\d+\.\d+|nan|inf)", line)]
+
+
+def example_runs(root: Path) -> list[tuple[str, list[str], list[str]]]:
+    """(example, argv, the images it writes) of [examples], on the
+    stand-ins under `root`, EXAMPLE_STEPS iterations each, on the default
+    device."""
+    img = {k: str(root / k) for k in [*STANDINS, *STANDIN_MASKS]}
+    n = ["--num-iter", str(EXAMPLE_STEPS)]
+    return [
+        ("denoising", ["--image", img["denoising/F16_GT.png"], *n],
+         ["denoised.png", "denoised_ema.png"]),
+        ("inpainting", ["--image", img["inpainting/kate.png"], "--mask",
+                        img["inpainting/kate_mask.png"], *n], ["inpainted.png"]),
+        ("super_resolution", ["--image", img["sr/zebra_GT.png"], *n], ["sr.png"]),
+        ("restoration", ["--image", img["restoration/barbara.png"], *n],
+         ["restored.png", "observed.png"]),
+        ("flash_no_flash", ["--flash", img["flash_no_flash/cave01_00_flash.jpg"], "--noflash",
+                            img["flash_no_flash/cave01_01_noflash.jpg"], *n],
+         ["flash_no_flash.png"]),
+        ("sr_prior_effect", ["--image", img["sr/zebra_GT.png"], *n],
+         ["prior_effect_skip.png", "prior_effect_identity.png"]),
+        ("feature_inversion", ["--image", img["denoising/F16_GT.png"], *n], ["inverted.png"]),
+        ("activation_maximization", n, ["activation_max.png"]),
+        ("fit_batch", ["--batch", str(EXAMPLE_BATCH), "--size", str(EXAMPLE_SIZE), *n],
+         [f"batch_out_{i}.png" for i in range(EXAMPLE_BATCH)]),
+    ]
+
+
+def example_launches(name: str, specs: list) -> dict:
+    """What example `name` launches in EXAMPLE_STEPS iterations, given the
+    specs it handed run_task: path_launches of each (an SR fit with two
+    downsample launches a step); fit_batch's BatchEngine one fit's."""
+    if name == "fit_batch":
+        return path_launches(_flagship_spec(None, EXAMPLE_STEPS, 100, EXAMPLE_SIZE),
+                             EXAMPLE_STEPS)
+    want: dict = {}
+    for spec in specs:
+        sr = spec.name.startswith("sr/")
+        for k, v in path_launches(spec, EXAMPLE_STEPS, 2 if sr else 0).items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def phase_examples(dev: torch.device, card: str, root: Path) -> None:
+    """[examples] Each of the nine examples' main(argv) in this process on
+    its default device, on the stand-ins at full size, EXAMPLE_STEPS
+    iterations (fit_batch: EXAMPLE_BATCH fits at EXAMPLE_SIZE^2; feature
+    inversion and activation maximization on seeded random weights), each
+    in an empty directory under build/examples: it returns 0, prints
+    finite loss (or PSNR) lines, writes its images, and launches what its
+    fits imply (example_launches), counters set to 0 just before and read
+    just after it."""
+    import importlib
+
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    for name, argv, files in example_runs(root):
+        mod = importlib.import_module(f"dip_tpu_torch.examples.{name}")
+        specs: list = []
+        real = getattr(mod, "run_task", None)
+        if real is not None:
+            def record(spec, *a, _real=real, **kw):
+                specs.append(spec)
+                return _real(spec, *a, **kw)
+
+            mod.run_task = record
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with _inside(Path("build") / "examples" / name):
+                rc, text = _call(f"examples {name}", mod.main, argv)
+                delta = launch_counts()
+                sizes = {f: Image.open(f).size for f in files if Path(f).exists()}
+        finally:
+            if real is not None:
+                mod.run_task = real
+        wall = time.perf_counter() - t0
+        want = example_launches(name, specs)
+        lines = [line for line in text.splitlines() if line.startswith("iter") or "PSNR-Y" in line]
+        values = _numbers(lines)
+        log(f"[examples] {name}: rc {rc} | {wall:.1f} s | {len(lines)} loss lines, "
+            f"{len(values)} values | wrote {sizes} | launches {delta} | card {card}")
+        if rc != 0 or not values or not np.isfinite(values).all():
+            raise RuntimeError(f"example {name} did not end well: rc {rc}, {lines}")
+        if len(sizes) != len(files):
+            raise RuntimeError(f"example {name} wrote {sorted(sizes)}, not {files}")
+        if delta != want:
+            raise RuntimeError(f"example {name}: launch counts {delta} != {want}")
+        if name == "denoising" and not all(delta[k] for k in ("fwd", "dgrad", "wgrad",
+                                                              "s2d_pack")):
+            raise RuntimeError(f"the denoising example ran no seam kernel: {delta}")
+    log(f"[examples] phase wall {time.perf_counter() - t_phase:.1f} s | card {card}")
+
+
+def _finite_record(rec: dict) -> bool:
+    return all(np.isfinite(v) for v in rec.values()
+               if isinstance(v, (int, float)) and not isinstance(v, bool))
+
+
+def phase_recipes(dev: torch.device, card: str, root: Path) -> None:
+    """[recipes] `reproduce --quick` (20 iterations of each of the 13
+    recipes) in bf16, then in f32, on the stand-ins under `root` (as
+    $DIP_REFERENCE_DATA), records to build/recipes: it returns 0, every
+    record is finite, each recipe on a skip net launched K1-K4 and the SR
+    ones K7 (counters set to 0 just before each recipe and read just after
+    it). Then `reproduce --quick-gate` in f32 and then in bf16 (f16, kate
+    and zebra4 at 1000, 1500 and 1000 iterations): every bf16 best within
+    GATE_DELTA_DB of its f32 best. The gate's PSNR floors were set on the
+    reference's photographs: each is printed beside its reading and held
+    only by the tool (which exits 3 when one fails)."""
+    import os
+    import shutil
+    from unittest import mock
+
+    from dip_tpu_torch.tools import reproduce as rp
+
+    t_phase = time.perf_counter()
+    out = Path("build") / "recipes"
+    shutil.rmtree(out, ignore_errors=True)
+    run_recipe = rp.run_recipe
+    runs: dict = {}
+
+    def counted(r, name, *a, **kw):
+        reset_counts()
+        rec = run_recipe(r, name, *a, **kw)
+        runs[(r.compute_dtype, name, rec["iters"])] = (rec, launch_counts())
+        return rec
+
+    rp.run_recipe = counted
+    try:
+        with mock.patch.dict(os.environ, {"DIP_REFERENCE_DATA": str(root)}):
+            for cd in ("bfloat16", "float32"):
+                rc, _ = _call("recipes", rp.main, ["--quick", "--compute-dtype", cd],
+                              outdir=str(out))
+                if rc != 0:
+                    raise RuntimeError(f"reproduce --quick --compute-dtype {cd}: rc {rc}")
+            t_quick = time.perf_counter() - t_phase
+            for cd in ("float32", "bfloat16"):
+                rc, _ = _call("recipes", rp.main, ["--quick-gate", "--compute-dtype", cd],
+                              outdir=str(out))
+                if rc not in (0, 3):  # 3: a floor or the budget failed, held below
+                    raise RuntimeError(f"reproduce --quick-gate --compute-dtype {cd}: rc {rc}")
+    finally:
+        rp.run_recipe = run_recipe
+    for (cd, name, iters), (rec, delta) in runs.items():
+        log(f"[recipes] {name} {cd} {iters} iters: {rec['it_per_s']} it/s, {rec['seconds']} s "
+            f"| " + ", ".join(f"{k} {v}" for k, v in rec.items() if "psnr" in k or "loss" in k
+                              or k == "prior_effect_db")
+            + f" | launches {delta} | card {card}")
+        if not _finite_record(rec):
+            raise RuntimeError(f"recipe {name} {cd}: a record is not finite: {rec}")
+        seams = [delta[k] for k in ("fwd", "dgrad", "wgrad", "s2d_pack")]
+        if name not in ZOO_RECIPES and not all(seams):
+            raise RuntimeError(f"recipe {name} {cd} ran no seam kernel: {delta}")
+        if name in SR_RECIPES and not delta["downsample"]:
+            raise RuntimeError(f"recipe {name} {cd} ran no downsample kernel: {delta}")
+    bad = []
+    for name, (iters, key, floor) in rp.QUICK_GATE.items():
+        f32 = runs[("float32", name, iters)][0]
+        bf16 = runs[("bfloat16", name, iters)][0]
+        delta_db = bf16.get("delta_vs_f32_db")
+        log(f"[recipes] gate {name} {key}_best: bf16 {bf16[f'{key}_best']} f32 "
+            f"{f32[f'{key}_best']} delta {delta_db} dB (budget -{rp.GATE_DELTA_DB}) | floor "
+            f"{floor} (the reference's photos; not held on stand-ins) | card {card}")
+        if delta_db is None or rp.gate_verdict(bf16[f"{key}_best"], floor, delta_db,
+                                               "bfloat16")[1]:
+            bad.append(name)
+    wall = time.perf_counter() - t_phase
+    log(f"[recipes] phase wall {wall:.1f} s (--quick bf16 + f32 {t_quick:.1f} s, gate "
+        f"{wall - t_quick:.1f} s) | card {card}")
+    if bad:
+        raise RuntimeError(f"bf16 over the f32 budget of {rp.GATE_DELTA_DB} dB: {bad}")
+
+
+def phase_train(dev: torch.device, card: str) -> None:
+    """[train] `train_backbone --quick` on the default device: AlexNet
+    trained 400 steps at batch 16, exported, then feature inversion of
+    fc6 and activation maximization of fc8 class 3, 60 iterations each,
+    records to build/train: it returns 0, the held-out accuracy is at
+    least TRAIN_ACC, the .pth reloads through pretrained/convert.py bit for
+    bit the trained state (recorded at the export), and the FI loss and
+    the AM objective fall. The AM closed loop is printed, not held."""
+    import json as _json
+    import shutil
+
+    from dip_tpu_torch.pretrained.convert import load_torch_weights
+    from dip_tpu_torch.tools import train_backbone as tb
+
+    t0 = time.perf_counter()
+    out = Path("build") / "train"
+    shutil.rmtree(out, ignore_errors=True)
+    export = tb.export_torch
+    kept: dict = {}
+
+    def keep(model, path):
+        kept.update(path=path, state={k: v.detach().cpu().clone()
+                                      for k, v in model.state_dict().items()})
+        export(model, path)
+
+    tb.export_torch = keep
+    try:
+        rc, _ = _call("train", tb.main, ["--quick"], outdir=str(out))
+    finally:
+        tb.export_torch = export
+    fi, am = [_json.loads(line) for line in (out / "reproduce.jsonl").open()]
+    converted = load_torch_weights(kept["path"])
+    same = all(torch.equal(converted[k.split(".")[0]][k.split(".")[1]], v)
+               for k, v in kept["state"].items())
+    log(f"[train] rc {rc} | held-out accuracy {fi['backbone_test_acc']} (limit {TRAIN_ACC}) | "
+        f".pth through convert.py bitwise the trained state: {same} ({len(kept['state'])} "
+        f"tensors) | FI fc6 loss {fi['fi_loss_first']} -> {fi['fi_loss_final']} | AM fc8[3] "
+        f"objective {am['am_loss_first']} -> {am['am_loss_final']} | closed loop argmax "
+        f"{am['am_argmax']} (target {am['am_target']}) margin {am['am_margin']} gain "
+        f"{am['am_logit_gain']} | {time.perf_counter() - t0:.1f} s | card {card}")
+    if rc != 0 or fi["backbone_test_acc"] < TRAIN_ACC:
+        raise RuntimeError(f"train_backbone: rc {rc}, accuracy {fi['backbone_test_acc']}")
+    if not same or len(converted) != 8:
+        raise RuntimeError("the exported .pth does not reload as the trained state")
+    if not fi["fi_loss_final"] < fi["fi_loss_first"]:
+        raise RuntimeError(f"feature inversion's loss did not fall: {fi}")
+    if not am["am_loss_final"] < am["am_loss_first"]:
+        raise RuntimeError(f"activation maximization's objective did not fall: {am}")
+
+
 def _entry(name: str, src_rep: tuple[str, str], launches: int, stats: dict) -> dict:
     return {"name": name, "route": "cuda", "source": src_rep[0], "replaces": src_rep[1],
             "launches": launches, "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
@@ -1954,6 +2346,12 @@ def main() -> int:
     phase_fi(dev, card)
     phase_am(dev, card)
     phase_cli(dev, card)
+    t0 = time.perf_counter()
+    root = standins()
+    phase_examples(dev, card, root)
+    phase_recipes(dev, card, root)
+    phase_train(dev, card)
+    log(f"[examples] + [recipes] + [train]: {time.perf_counter() - t0:.1f} s | card {card}")
     # each kernel's launches come from the main path that runs it: the
     # flagship fit for the seam's fwd, dgrad and wgrad and the s2d pack,
     # the SR fits for the carry-in forward and the downsample, the

@@ -11,7 +11,7 @@ import torch.nn as nn
 from dip_tpu_torch.models.dcgan import DCGAN, dcgan
 from dip_tpu_torch.models.downsampler import Downsampler, LearnableDownsampler
 from dip_tpu_torch.models.resnet import ResNet
-from dip_tpu_torch.models.skip import Skip
+from dip_tpu_torch.models.skip import Skip, skip
 from dip_tpu_torch.models.texture_nets import TextureNet, get_texture_nets
 from dip_tpu_torch.models.unet import UNet
 
@@ -61,5 +61,5 @@ def get_net(input_depth: int, net_type: str, pad: str, upsample_mode: str,
     raise ValueError(f"unknown net type {net_type!r}")
 
 
-__all__ = ["get_net", "Skip", "UNet", "ResNet", "TextureNet", "get_texture_nets", "DCGAN",
-           "dcgan", "Identity", "Downsampler", "LearnableDownsampler"]
+__all__ = ["get_net", "Skip", "skip", "UNet", "ResNet", "TextureNet", "get_texture_nets",
+           "DCGAN", "dcgan", "Downsampler", "LearnableDownsampler", "Identity"]

@@ -167,3 +167,11 @@ class Skip(nn.Module):
 
         u = next(convs)(u, conv_wgrad=wgrad)
         return torch.sigmoid(u) if self.need_sigmoid else u
+
+
+def skip(num_input_channels: int = 2, num_output_channels: int = 3, **kwargs) -> Skip:
+    """Constructor with the reference's signature (skip.py:5-11). Unlike
+    the JAX package's, which takes the input width from z at init, it
+    passes `num_input_channels` on: a torch conv needs it at construction."""
+    return Skip(num_input_channels=num_input_channels,
+                num_output_channels=num_output_channels, **kwargs)

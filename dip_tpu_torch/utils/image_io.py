@@ -78,3 +78,11 @@ def nhwc_to_hwc(x) -> np.ndarray:
     if hasattr(x, "detach"):
         x = x.detach().cpu().numpy()
     return np.asarray(x)[0]
+
+
+def chw_to_hwc(x: np.ndarray) -> np.ndarray:
+    return np.transpose(np.asarray(x), (1, 2, 0))
+
+
+def hwc_to_chw(x: np.ndarray) -> np.ndarray:
+    return np.transpose(np.asarray(x), (2, 0, 1))
