@@ -32,7 +32,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      f32, NHWC and channel-planar, and at ragged and narrow shapes,
      launched twice and bitwise equal, with times beside their plain
      versions' and cuDNN's (bf16 with the time of its operands' layout
-     copies, which its time includes);
+     copies, which its time includes); and their fit axis (BatchEngine's
+     conv_wgrad) at 8 fits of the top 'kate' shapes, each fit bitwise its
+     single-fit launch, timed beside 8 x one fit, the plain version and
+     one grouped cuDNN weight gradient;
   4. small-input reference: a 2-scale 128-channel skip net, forward and
      gradients on the card against the same net on the CPU: under an MSE
      at full resolution, and under the SR loss (x4 downsample, MSE at LR)
@@ -79,53 +82,70 @@ Phases, each of which raises on failure (exit code 1, no result line):
      graphed b1 fit and the FitQueue b8; under deterministic cuDNN one
      batched step against 8 Engine steps from the same seeds (loss and
      gradients per fit at stated limits) and 10 eager batched steps against
-     run() bit for bit; 3 batched steps with no host sync;
- 10. [fleet] eval_sr_dataset_sharded over make_mesh() on three synthetic
+     run() bit for bit; 3 batched steps with no host sync; then 8 'kate'
+     fits (inpainting, 512^2, 128-channel skips) with conv_wgrad='all', in
+     bf16 and f32, one batched step: each K5/K6 fit-axis call's every fit
+     bitwise its single-fit launch, the launches exact (K5/K6 one fit's in
+     bf16, 8 x in f32); and 8 flagship fits at 64^2 in f32 with optimizer
+     'lbfgs' (10 graphed Adam warm-up steps, 10 eager L-BFGS steps, the
+     line searches in lockstep): launches exact, losses falling, and each
+     L-BFGS step held at the batched fit's state against its own Engine
+     (loss, evaluations and, where the evaluations agree, the step itself
+     at stated limits);
+ 10. [spatial] SpatialEngine: the flagship Skip 5x128 at full width, its
+     activations cut into row blocks over a mesh that repeats the one
+     card, bf16 at 1024^2 over 4 blocks and f32 at 512^2 over 2: under
+     deterministic cuDNN one step against Engine's from the same seed at
+     [batch]'s limits and 10 eager steps against run() bit for bit; 20
+     graphed steps (loss falling, render finite, K1-K4 each blocks x 5
+     launches a step), it/s and peak memory beside the unsharded fit's;
+     3 sharded steps with no host sync;
+ 11. [fleet] eval_sr_dataset_sharded over make_mesh() on three synthetic
      PNGs of two sizes, x4, under deterministic cuDNN: names, finite
      scores, one BatchEngine program per shape group, scores within 0.1 dB
      of eval_sr_dataset's with the same seeds after one step and within
      3 dB (its own run-to-run spread) after 40;
- 11. [flash] flash/no-flash at 512^2 in bf16 (nearest up at the two top
+ 12. [flash] flash/no-flash at 512^2 in bf16 (nearest up at the two top
      seams, bilinear below): loss falling, psnr_track rising, launch
      counts;
- 12. [ckpt] the flagship in bf16 under deterministic cuDNN: 10 steps,
+ 13. [ckpt] the flagship in bf16 under deterministic cuDNN: 10 steps,
      saved, restored into a fresh state, 10 more, against 20
      uninterrupted, bit for bit;
- 13. [lbfgs] the flagship with optimizer 'lbfgs' in bf16 and f32: 10 Adam
+ 14. [lbfgs] the flagship with optimizer 'lbfgs' in bf16 and f32: 10 Adam
      warm-up steps (graphed), then 10 eager L-BFGS steps: the loss falls
      and is finite, and the seam kernels' launches are what the warm-up,
      the value-and-gradient evaluations and the render imply; evaluations
      and eager ms a step;
- 14. [backbones] AlexNet-caffe (227^2), VGG19, VGG16 and the modified
+ 15. [backbones] AlexNet-caffe (227^2), VGG19, VGG16 and the modified
      VGG19 (224^2) at full width with seeded random weights, card against
      CPU, TF32 off: the deepest conv or pool tap and the fc taps, and the
      gradient of the deepest tap's sum with respect to the image;
- 15. [fi] feature inversion through run_task, 30 graphed steps, bf16 and
+ 16. [fi] feature inversion through run_task, 30 graphed steps, bf16 and
      f32: AlexNet fc6 at 227^2 (the notebook's recipe) and a Gram-matrix
      match at VGG19 conv3_1 at 224^2, the generator at 256^2, on a
      synthetic numpy image: loss falling, the render the classifier's crop,
      no seam launch (zero padding fuses none);
- 16. [am] activation maximization through run_task, 30 graphed steps, bf16
+ 17. [am] activation maximization through run_task, 30 graphed steps, bf16
      and f32, the recipe's jitter and weight jitter: AlexNet conv4 map 2
      ('maximize') and fc8 ('am_match', lr 1e-2): loss falling, the render
      the crop, K1 = 2 x 31 and K2, K3, K4 = 2 x 30 launches;
- 17. [cli] `dip_tpu_torch.cli.main(["fit", "--task", "activation_max",
+ 18. [cli] `dip_tpu_torch.cli.main(["fit", "--task", "activation_max",
      "--num-iter", "30", "--log-every", "10"])` in this process, on its
      default device: returns 0, three falling loss lines, exact launches;
      then `eval-sr --fleet` on the [fleet] images: rc 0, each score finite;
- 18. [examples] on stand-ins of the reference's data/ at full size
+ 19. [examples] on stand-ins of the reference's data/ at full size
      (write_reference_standins, under build/): each of the nine examples'
      main(argv) in this process on its default device, 20 iterations
      (fit_batch: 8 fits at 256^2), in an empty directory: rc 0, finite
      loss or PSNR lines, its images written, and exactly the launches its
      fits imply;
- 19. [recipes] `tools.reproduce --quick` over the 13 recipes in bf16, then
+ 20. [recipes] `tools.reproduce --quick` over the 13 recipes in bf16, then
      in f32, on the stand-ins: finite records, K1-K4 launched by every
      recipe on a skip net and K7 by the SR ones; then `--quick-gate` in
      f32 and in bf16: every bf16 best within 0.75 dB of the f32 best (the
      PSNR floors, set on the reference's photos, printed beside the
      readings and not held here);
- 20. [train] `tools.train_backbone --quick`: AlexNet trained 400 steps at
+ 21. [train] `tools.train_backbone --quick`: AlexNet trained 400 steps at
      batch 16 to a held-out accuracy of at least 0.9, its exported .pth
      reloaded through pretrained/convert.py bit for bit the trained
      state, and falling losses of feature inversion (fc6) and activation
@@ -133,7 +153,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      wall is printed.
 The last three lines are the card line, a JSON object of the kernels (each
 with its launches on a main path, the seam kernels' fit-axis forms as rows
-of their own with their launches in [batch], error, times, and the bound of this
+of their own with their launches in [batch], the weight gradients' fit
+axis likewise, error, times, and the bound of this
 run's shapes on an H100: bytes at 3.35 TB/s against operations at 989
 TFLOP/s bf16 or 67 TFLOP/s f32 FMA; the weight gradients' rows give their
 bf16 figures as the row's own, their f32 figures under "f32" and each
@@ -204,6 +225,44 @@ BATCH_FITS = 8  # [batch]
 # on an H100: PERF.md §6), so they are left out of the comparison.
 BATCH_LOSS_TOL = {"bfloat16": 1e-2, None: 1e-3}
 BATCH_GRAD_TOL = {"bfloat16": 1e-1, None: 5e-2}
+# [batch] with conv_wgrad='all': BATCH_FITS 'kate' fits (inpainting, 512^2,
+# 128-channel skips), one batched step a dtype, each fit's K5/K6 result
+# bitwise its single-fit launch on its own slice
+# [batch] L-BFGS: BATCH_FITS flagship fits at 64^2 in f32 (with the
+# carry-in), LBFGS_WARMUP graphed Adam steps, then LBFGS_STEPS L-BFGS steps.
+# Free runs of a batched fit and its own Engine part: on the CPU, 2 such
+# fits read 3-10 % apart in loss within the 20 steps, and Adam at lr 0.01
+# up to 84 % (hazard 5: +-lr steps on rounding noise). So each L-BFGS step
+# is held at the batched fit's own state: its Engine, put at that state
+# (params, EMA, step counters, jitter generators, L-BFGS memory), takes the
+# step alone; its loss within BATCH_LOSS_TOL[None] of the batched fit's
+# (2.1e-4 read on the CPU), and its evaluations equal in at least
+# BATCH_LBFGS_SAME_EVALS of the LBFGS_STEPS steps of every fit (a Wolfe test
+# whose margin lies below the rounding difference can go either way).
+# Where the evaluations are equal, the step itself (the new params less the
+# old, over all leaves: the direction from each fit's memory times its
+# accepted t) is held too: its error over its largest element within
+# BATCH_LBFGS_STEP_TOL. The step is the two-loop recursion's linear map of
+# the gradient times t, so it carries the gradient's rounding difference
+# (BATCH_GRAD_TOL[None]'s 5e-2; 4 such fits at 64^2 on the CPU read
+# 1.6e-4 to 1.4e-2 over 10 steps); a direction from another fit's memory, a
+# lost memory pair or another accepted trial is off by O(1).
+BATCH_LBFGS_SIZE = 64
+BATCH_LBFGS_SAME_EVALS = 8
+BATCH_LBFGS_STEP_TOL = BATCH_GRAD_TOL[None]
+# the weight-gradient kernels' fit axis (phase 3): BATCH_FITS fits at the
+# top 'kate' shapes, (kernel, halo, one fit's x and g (H, W, C))
+WGRAD_FIT_CASES = [("wgrad3x3_s1", 0, (514, 514, 128), (512, 512, 128)),
+                   ("wgrad1x1", 0, (512, 512, 128), (512, 512, 128))]
+# [spatial]: (compute dtype, image size, row blocks): the flagship over a
+# mesh that repeats the one card; SPATIAL_STEPS graphed steps. One step of
+# the sharded fit is held to Engine's from the same seed at [batch]'s
+# limits (BATCH_LOSS_TOL, BATCH_GRAD_TOL): the blocks sum BN's moments in
+# another order, and the seam rounds its operands to bf16, so a last-bit
+# difference moves an element by 2^-8 of itself (on the CPU with the seam
+# on, f32: 9.7e-6 loss, 2.4e-3 gradients; bf16: 1.3e-4, 4.2e-2).
+SPATIAL_FITS = [("bfloat16", 1024, 4), (None, 512, 2)]
+SPATIAL_STEPS = 20
 # [fleet]: HR sizes (multiples of 32) by name, two shapes; x4. Under
 # deterministic cuDNN the fleet's scores after one step within FLEET_DB_1
 # of the sequential evaluation's (the fits start alike: the batched
@@ -901,6 +960,72 @@ def _hold_wgrad(W, name: str, halo: int, x: torch.Tensor, g: torch.Tensor,
     if rel > WGRAD_TOL[dtype]:
         raise RuntimeError(f"{name} disagrees with its plain version: "
                            f"rel {rel:.3e} > {WGRAD_TOL[dtype]}")
+
+
+def phase_wgrad_fit_axis_parity(dev: torch.device) -> dict:
+    """K5 and K6 with the fit axis (BatchEngine's conv_wgrad launches) at
+    WGRAD_FIT_CASES, BATCH_FITS fits, in bf16 and f32: each fit's dW
+    against its plain version at WGRAD_TOL and bitwise the single-fit
+    launch on that fit's own slice; deterministic. Timed: the fits' launch
+    (bf16: one launch; f32: one a fit) against BATCH_FITS x the single-fit
+    launch, the plain version per fit, and one grouped cuDNN weight
+    gradient (groups = BATCH_FITS). Returns each kernel's figures: bf16 as
+    the row's own, f32 under "f32"."""
+    from dip_tpu_torch.ops import hopper_wgrad as W
+
+    stats = {k: {"max_abs_err": 0.0} for k in WGRAD}
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b = BATCH_FITS
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, halo, xs, gs in WGRAD_FIT_CASES:
+            ks = 3 if name == "wgrad3x3_s1" else 1
+            x = torch.randn((b, *xs), generator=gen, device=dev).to(dtype)
+            g = torch.randn((b, *gs), generator=gen, device=dev).to(dtype)
+            args = (halo,) if ks == 3 else ()
+            kern = lambda: getattr(W, name)(x, g, *args, b)  # noqa: E731
+            one = lambda: getattr(W, name)(x[:1], g[:1], *args)  # noqa: E731
+            plain = getattr(W, f"{name}_plain")
+            plain_all = lambda: plain(x, g, *args, b)  # noqa: E731
+            w_size = (b * gs[2], xs[2], ks, ks)
+            xg = x.permute(1, 2, 0, 3).reshape(1, *xs[:2], b * xs[2]).permute(0, 3, 1, 2)
+            gg = g.permute(1, 2, 0, 3).reshape(1, *gs[:2], b * gs[2]).permute(0, 3, 1, 2)
+
+            def grouped():
+                return torch.nn.grad.conv2d_weight(xg, w_size, gg, 1, halo, groups=b)
+
+            got = kern()
+            want = plain_all()
+            torch.cuda.synchronize()
+            rel, abs_err = rel_err(got, want)
+            same = all(torch.equal(got[i], getattr(W, name)(x[i:i + 1], g[i:i + 1], *args))
+                       for i in range(b))
+            if not torch.equal(kern(), got):
+                raise RuntimeError(f"{name} with the fit axis is not deterministic")
+            lib_rel = rel_err(grouped().reshape(b, gs[2], xs[2], ks, ks).permute(0, 3, 4, 2, 1),
+                              want)[0]
+            ms, one_ms = time_ms(kern, 5), time_ms(one, 5)
+            plain_ms, lib_ms = time_ms(plain_all, 2), time_ms(grouped, 5)
+            bound_ms, by = wgrad_bound(ks, (b, *xs), (b, *gs), dtype)
+            log(f"[parity] {name:11s} {str(dtype)[6:]:8s} fits B={b} halo {halo} x {xs} g {gs} "
+                f"a fit: rel {rel:.2e} abs {abs_err:.2e}, grouped cudnn rel {lib_rel:.2e}; "
+                f"each fit's dW {'bitwise' if same else 'NOT'} the single-fit launch's | B "
+                f"fits {ms:.4f} ms against B x one fit {b * one_ms:.4f} ms ({b} x "
+                f"{one_ms:.4f}), plain {plain_ms:.4f} ms, grouped cudnn {lib_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({by})")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], abs_err)
+            fig = dict(fits=b, ms=ms, single_fit_ms=one_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+            if dtype == torch.bfloat16:
+                stats[name].update(fig)
+            else:
+                stats[name]["f32"] = fig
+            if rel > WGRAD_TOL[dtype]:
+                raise RuntimeError(f"{name} with the fit axis disagrees with its plain "
+                                   f"version: rel {rel:.3e}")
+            if not same:
+                raise RuntimeError(f"{name}: a fit's bits depend on the batch")
+            del x, g, xg, gg, got, want
+    return stats
 
 
 def phase_small_reference(dev: torch.device) -> None:
@@ -1606,6 +1731,340 @@ def phase_batch(dev: torch.device, card: str, b8_ips: float) -> dict:
     torch.cuda.synchronize(dev)
     log(f"[sync] BatchEngine {BATCH_FITS} fits, flagship 64^2 bfloat16 seam carry: 3 batched "
         f"steps made no host sync")
+    del beng, state, auxs
+    wgrad, f32_wgrad = _batch_conv_wgrad(dev, card)
+    for part in (wgrad, _batch_lbfgs(dev, card)):
+        total = {k: total.get(k, 0) + v for k, v in part.items()}
+    return total, f32_wgrad
+
+
+def _batch_conv_wgrad(dev: torch.device, card: str) -> dict:
+    """[batch] BATCH_FITS 'kate' fits (inpainting at 512^2, 128-channel
+    skips) with conv_wgrad='all', bf16 and f32: one batched step and a
+    render, each stride-1 3x3 and 1x1 conv's weight gradient from K5 / K6
+    with the fit axis (hopper_wgrad.ConvFits). Each fit-axis call is held
+    where it is made: every fit's dW bitwise the single-fit launch on that
+    fit's own slice (those launches are taken back from the counters). The
+    launches, counters set to 0 just before and read just after: the seam
+    kernels one fit's; K5 and K6 one fit's in bf16 (one launch for all the
+    fits), BATCH_FITS x one fit's in f32 (a launch a fit). Returns them,
+    and apart the f32 fits' K5 and K6 launches (single-fit launches)."""
+    from dip_tpu_torch.ops import hopper_wgrad as W
+    from dip_tpu_torch.ops import launches as L
+    from dip_tpu_torch.parallel import BatchEngine
+    from dip_tpu_torch.tasks.base import make_input
+
+    total: dict = {}
+    real = {"wgrad3x3_s1": W.wgrad3x3_s1, "wgrad1x1": W.wgrad1x1}
+    held = {"calls": 0, "differ": []}
+
+    def k5(x, g, halo=1, fits=None):
+        return _held_fit_axis("wgrad3x3_s1", real, held, L, x, g, fits, halo)
+
+    def k6(x, g, fits=None):
+        return _held_fit_axis("wgrad1x1", real, held, L, x, g, fits)
+
+    for cd in ("bfloat16", None):
+        spec = _masked_spec("inpaint", "kate", cd, "all")
+        beng = BatchEngine(copy.deepcopy(spec.model), spec.loss_fn, spec.cfg, spec.metrics_fn,
+                           device=dev)
+        auxs = {k: v.expand(BATCH_FITS, *v.shape).contiguous().to(dev)
+                for k, v in spec.aux.items()}
+        zs = torch.stack([make_input(spec, torch.Generator().manual_seed(i), "cpu")
+                          for i in range(BATCH_FITS)])
+        state = beng.init_state([i + 1 for i in range(BATCH_FITS)], zs)
+        held.update(calls=0, differ=[])
+        W.wgrad3x3_s1, W.wgrad1x1 = k5, k6
+        try:
+            reset_counts()
+            metrics = beng.step(state, auxs)
+            out = beng.render(state)
+            torch.cuda.synchronize(dev)
+            delta = launch_counts()
+        finally:
+            W.wgrad3x3_s1, W.wgrad1x1 = real["wgrad3x3_s1"], real["wgrad1x1"]
+        want = path_launches(spec, 1)
+        if cd is None:
+            want = {k: v * (BATCH_FITS if k in WGRAD else 1) for k, v in want.items()}
+        loss = metrics["loss"].cpu().numpy()
+        log(f"[batch] {BATCH_FITS} fits, inpaint 'kate' {FIT_SIZE}^2 {cd or 'float32'} "
+            f"conv_wgrad='all', one batched step: {held['calls']} K5/K6 fit-axis calls, every "
+            f"fit's dW {'bitwise' if not held['differ'] else 'NOT bitwise'} its single-fit "
+            f"launch's | losses {', '.join(f'{v:.4f}' for v in loss)} | launches {delta} "
+            f"(expected {want}) | card {card}")
+        if held["differ"]:
+            raise RuntimeError(f"a fit's K5/K6 result differs from its single-fit launch: "
+                               f"{held['differ'][:4]}")
+        if delta != want or held["calls"] == 0:
+            raise RuntimeError(f"batched conv_wgrad launch counts {delta} != {want}")
+        if not np.isfinite(loss).all() or not torch.isfinite(out).all():
+            raise RuntimeError("a batched 'kate' fit is not finite")
+        total = {k: total.get(k, 0) + v for k, v in delta.items()}
+        if cd is None:
+            f32_wgrad = {k: delta[k] for k in WGRAD}
+        del beng, state, auxs, out
+    return total, f32_wgrad
+
+
+def _held_fit_axis(name: str, real: dict, held: dict, L, x, g, fits, *halo):
+    """The wrapper `name` as the batched step calls it; where it has the fit
+    axis, each fit's result against the single-fit launch on the fit's own
+    slice, bitwise, those launches taken back from the counters."""
+    if fits is None:
+        return real[name](x, g, *halo)
+    out = real[name](x, g, *halo, fits)
+    before = L.counts()
+    n = x.shape[0] // fits
+    for b in range(fits):
+        one = real[name](x[b * n:(b + 1) * n], g[b * n:(b + 1) * n], *halo)
+        if not torch.equal(out[b], one):
+            held["differ"].append(f"{name} fit {b} x {tuple(x.shape)} "
+                                  f"({(out[b] - one).abs().max().item():.3e})")
+    L.add({k: v - before[k] for k, v in L.counts().items()}, -1)
+    held["calls"] += 1
+    return out
+
+
+def _lbfgs_snapshot(shard) -> dict:
+    """What a BatchEngine device's L-BFGS step reads, copied: params, EMA,
+    step counters, jitter generators' states, and BatchZoomLBFGS's memory."""
+    st = shard.opt.state[shard.opt._params[0]]
+    return {"params": {k: p.detach().clone() for k, p in shard.params.items()},
+            "ema": shard.ema_out.clone(), "device_step": shard.device_step.clone(),
+            "step": shard.step,
+            "gens": [g.get_state() for g in shard.generators],
+            "pgens": [g.get_state() for g in shard.param_generators or []],
+            "memory": {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                       for k, v in st.items()}}
+
+
+def _engine_at(spec, dev: torch.device, i: int, snap: dict, aux_i):
+    """Fit i's own Engine (L-BFGS) at the batched fit's state `snap`."""
+    from dip_tpu_torch.fit.lbfgs import ZoomLBFGS
+
+    one = dataclasses.replace(spec, aux=aux_i, model=copy.deepcopy(spec.model))
+    eng, st, aux = _fit_parts(one, dev, i)
+    with torch.no_grad():
+        for k, p in st.params.items():
+            p.copy_(snap["params"][k][i])
+    st.ema_out = snap["ema"][i].clone()
+    st.device_step.copy_(snap["device_step"])
+    st.step = snap["step"]
+    st.generator.set_state(snap["gens"][i])
+    if st.param_generator is not None:
+        st.param_generator.set_state(snap["pgens"][i])
+    st.opt = ZoomLBFGS(st.params.values())
+    mem = snap["memory"]
+    if mem and mem["count"] > 0:
+        st.opt.state[st.opt._params[0]].update(
+            count=mem["count"], x_prev=mem["x_prev"][i].clone(), g_prev=mem["g_prev"][i].clone(),
+            dw=mem["dw"][:, i].clone(), du=mem["du"][:, i].clone(), rho=mem["rho"][:, i].clone())
+    return eng, st, aux
+
+
+def _batch_lbfgs(dev: torch.device, card: str) -> dict:
+    """[batch] BATCH_FITS flagship fits at BATCH_LBFGS_SIZE^2 in f32 (with
+    the carry-in) with optimizer 'lbfgs' through BatchEngine.run:
+    LBFGS_WARMUP graphed Adam steps, then LBFGS_STEPS eager L-BFGS steps,
+    each a lockstep round of the fits' line searches a trial. Launches
+    exact (counters set to 0 just before, read just after): one fit's path
+    for the warm-up steps and for every round of evaluations (each round
+    one forward and backward of all the fits), and the render; each fit's
+    loss finite and falling; ms a step and evaluations. Then, under
+    deterministic cuDNN, the same fits step by step: before each L-BFGS
+    step, every fit's own Engine is put at the batched fit's state (params,
+    EMA, step counters, jitter generators, L-BFGS memory) and takes the
+    step alone: its loss within BATCH_LOSS_TOL[None] of the batched fit's,
+    its evaluations equal in at least BATCH_LBFGS_SAME_EVALS of the
+    LBFGS_STEPS steps of every fit (a Wolfe test whose margin lies below
+    the rounding difference can go either way), and in each step with
+    equal evaluations the fit's step (new params less old) within
+    BATCH_LBFGS_STEP_TOL of its Engine's, over the largest element.
+    Returns the free run's launches."""
+    spec = _batch_spec(None, BATCH_LBFGS_SIZE, LBFGS_STEPS)
+    spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, optimizer="lbfgs", lbfgs_warmup=LBFGS_WARMUP, log_every=1))
+    beng, state, auxs = _batch_parts(spec, dev)
+    marks: list[float] = []
+    reset_counts()
+    state, hist = beng.run(state, auxs, callback=lambda it, h, s: marks.append(
+        time.perf_counter()))
+    out = beng.render(state)
+    torch.cuda.synchronize(dev)
+    delta = launch_counts()
+    evals = hist["evals"]
+    rounds = int(evals.max(axis=1).sum())
+    want = path_launches(spec, LBFGS_WARMUP + rounds)
+    loss = hist["loss"]
+    ms = (marks[-1] - marks[0]) * 1e3 / (len(marks) - 1)
+    log(f"[batch] {BATCH_FITS} fits, flagship {BATCH_LBFGS_SIZE}^2 float32 seam carry, "
+        f"optimizer lbfgs: {LBFGS_WARMUP} graphed Adam warm-up steps, then {LBFGS_STEPS} "
+        f"L-BFGS steps in {rounds} rounds of evaluations (a step's most of any fit; "
+        f"evaluations per fit {evals.sum(axis=0).astype(int).tolist()}) | eager {ms:.2f} ms a "
+        f"batched step (steps 2-{LBFGS_STEPS}) | losses "
+        + ", ".join(f"{a:.4f}->{b:.4f}" for a, b in zip(loss[0], loss[-1]))
+        + f" | launches {delta} | card {card}")
+    if delta != want:
+        raise RuntimeError(f"batched L-BFGS launch counts {delta} != {want}")
+    if not (np.isfinite(loss).all() and (loss[-1] < loss[0]).all()):
+        raise RuntimeError(f"a batched L-BFGS fit's loss is not finite and falling: {loss}")
+    if not torch.isfinite(out).all():
+        raise RuntimeError("a batched L-BFGS render is not finite")
+    del beng, state, out
+
+    with _deterministic_cudnn():
+        beng, state, auxs = _batch_parts(spec, dev)
+        part, shard = beng.parts[0], state.shards[0]
+        aux = beng._split(auxs)[0]
+        with part.on_device():
+            part._warmup(shard, aux)
+        worst, worst_step, where = 0.0, 0.0, ""
+        same = np.zeros(BATCH_FITS, dtype=int)
+        for j in range(LBFGS_STEPS):
+            snap = _lbfgs_snapshot(shard)
+            got = part.step(shard, aux)[1]
+            got_loss, got_evals = got["loss"].cpu().numpy(), got["evals"].cpu().numpy()
+            for i in range(BATCH_FITS):
+                eng, st, aux_i = _engine_at(spec, dev, i, snap,
+                                            {k: v[i].cpu() for k, v in auxs.items()})
+                _, m = eng.step(st, aux_i)
+                worst = max(worst, abs(got_loss[i] / m["loss"].item() - 1))
+                if got_evals[i] == m["evals"].item():
+                    same[i] += 1
+                    old = snap["params"]
+                    d_got = {k: shard.params[k][i] - old[k][i] for k in st.params}
+                    d_own = {k: st.params[k] - old[k][i] for k in st.params}
+                    top = max(v.abs().max().item() for v in d_own.values())
+                    err, leaf = max(((d_got[k] - d_own[k]).abs().max().item() / top, k)
+                                    for k in st.params)
+                    if err > worst_step:
+                        worst_step, where = err, f"step {j + 1}, fit {i}, {leaf}"
+                del eng, st, aux_i
+        tol = BATCH_LOSS_TOL[None]
+        log(f"[batch] {BATCH_FITS} L-BFGS fits, cudnn deterministic: each of {LBFGS_STEPS} "
+            f"batched L-BFGS steps against every fit's own Engine at the batched fit's state: "
+            f"loss max rel {worst:.2e} (limit {tol:.0e}); steps with equal evaluations per fit "
+            f"{same.tolist()} (at least {BATCH_LBFGS_SAME_EVALS} of {LBFGS_STEPS}); in those, "
+            f"the step's error over its largest element {worst_step:.2e} ({where}; limit "
+            f"{BATCH_LBFGS_STEP_TOL:.0e}) | card {card}")
+        if (worst > tol or (same < BATCH_LBFGS_SAME_EVALS).any()
+                or worst_step > BATCH_LBFGS_STEP_TOL):
+            raise RuntimeError("a batched L-BFGS step differs from its fit's own Engine's")
+    return delta
+
+
+def _spatial_parts(spec, dev: torch.device, blocks: int, seed: int = 0) -> tuple:
+    """(SpatialEngine, state, aux) of a fit of `spec` over Mesh([dev] *
+    blocks) on a copy of its model, seeded as run_task seeds it."""
+    from dip_tpu_torch.parallel.mesh import Mesh
+    from dip_tpu_torch.parallel.spatial import SpatialEngine
+    from dip_tpu_torch.tasks.base import make_input, to_device
+
+    eng = SpatialEngine(copy.deepcopy(spec.model), spec.loss_fn, spec.cfg, spec.metrics_fn,
+                        mesh=Mesh([dev] * blocks, axis="sp"))
+    z = make_input(spec, torch.Generator().manual_seed(seed), eng.device)
+    return eng, eng.init_state(seed + 1, z, spec.extra_params), to_device(spec.aux, eng.device)
+
+
+def phase_spatial(dev: torch.device, card: str) -> dict:
+    """[spatial] SpatialEngine: the flagship Skip 5x128 (bilinear seams,
+    reflection pad, jitter 1/30, EMA) at full width, its activations cut
+    into row blocks over a mesh that repeats the one card, at each of
+    SPATIAL_FITS. Under deterministic cuDNN: one step against Engine's from
+    the same seed (loss and every gradient at [batch]'s limits, the BN-fed
+    conv biases printed apart), and GRAPH_STEPS eager steps against run() of
+    as many, bit for bit. Then SPATIAL_STEPS graphed steps: loss finite and
+    falling, render finite, K1-K4 each launched blocks x 5 times a step
+    (K1 once more a block in the render), counters set to 0 just before
+    and read just after; its it/s and peak memory beside the unsharded
+    fit's (run_fit); three eager steps with no host sync. Returns the
+    launches of the graphed sharded runs."""
+    from dip_tpu_torch.fit.engine import tf32_flags
+
+    total: dict = {}
+    for cd, size, blocks in SPATIAL_FITS:
+        fit = f"flagship {size}^2 {cd or 'float32'}"
+        tag = f"{fit}, {blocks} row blocks on one card"
+        with _deterministic_cudnn():
+            spec = _flagship_spec(cd, 1, 1, size)
+            eng_s, st_s, aux_s = _spatial_parts(spec, dev, blocks)
+            _, m_s = eng_s.step(st_s, aux_s)
+            eng_u, st_u, aux_u = _fit_parts(spec, dev)
+            _, m_u = eng_u.step(st_u, aux_u)
+            g_max = max(p.grad.abs().max().item() for p in st_u.params.values())
+            noise = {f"convs.{j}.bias" for j in range(len(spec.model.convs) - 1)}
+            errs = {k: (st_s.params[k].grad - p.grad).abs().max().item() / g_max
+                    for k, p in st_u.params.items()}
+            worst_grad = max(e for k, e in errs.items() if k not in noise)
+            worst_noise = max(errs[k] for k in noise)
+            worst_loss = abs(m_s["loss"].item() / m_u["loss"].item() - 1)
+            tol_l, tol_g = BATCH_LOSS_TOL[cd], BATCH_GRAD_TOL[cd]
+            log(f"[spatial] {tag}, cudnn deterministic: one sharded step against Engine's "
+                f"from the same seed: loss rel {worst_loss:.2e} (limit {tol_l:.0e}), gradients "
+                f"max err / the largest {worst_grad:.2e} (limit {tol_g:.0e}; the {len(noise)} "
+                f"BN-fed conv biases, zero in exact arithmetic, {worst_noise:.2e}) | card {card}")
+            if worst_loss > tol_l or worst_grad > tol_g:
+                raise RuntimeError("the sharded step differs from Engine's")
+            del eng_s, st_s, aux_s, eng_u, st_u, aux_u
+            spec = _flagship_spec(cd, GRAPH_STEPS, GRAPH_STEPS, size)
+            eng_e, st_e, aux_e = _spatial_parts(spec, dev, blocks)
+            eager = torch.stack([eng_e.step(st_e, aux_e)[1]["loss"]
+                                 for _ in range(GRAPH_STEPS)]).cpu()
+            eng_g, st_g, aux_g = _spatial_parts(spec, dev, blocks)
+            _, hist = eng_g.run(st_g, aux_g)
+            torch.cuda.synchronize(dev)
+            same = torch.equal(eager, torch.from_numpy(hist["loss"]))
+            differ = _differing(st_e, st_g)
+            log(f"[spatial] {tag}, cudnn deterministic: {GRAPH_STEPS} eager sharded steps "
+                f"against run() ({GRAPH_STEPS - 1} replays): losses "
+                f"{'bitwise equal' if same else 'DIFFER'}, params and EMA "
+                f"{'bitwise equal' if not differ else 'DIFFER in ' + ', '.join(differ[:6])}")
+            if not same or differ:
+                raise RuntimeError("the graphed sharded steps differ from the eager ones")
+            del eng_e, st_e, aux_e, eng_g, st_g, aux_g
+
+        spec = _flagship_spec(cd, SPATIAL_STEPS, 10, size)
+        _, b1_ips = run_fit(spec, dev, card, "spatial", f"unsharded reference, {fit}",
+                            path_launches(spec, SPATIAL_STEPS), None)
+        b1_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        eng, state, aux = _spatial_parts(spec, dev, blocks)
+        marks: list[tuple[int, float]] = []
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        state, hist = eng.run(state, aux, callback=lambda it, h, s: marks.append(
+            (it, time.perf_counter())))
+        out = eng.render(state)
+        torch.cuda.synchronize(dev)
+        delta = launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        (i0, t0), (i1, t1) = marks[0], marks[-1]
+        ips = (i1 - i0) / (t1 - t0)
+        want = {k: blocks * v for k, v in path_launches(spec, SPATIAL_STEPS).items()}
+        loss = hist["loss"]
+        log(f"[spatial] {tag}, SpatialEngine graphed: {ips:.2f} it/s (steps {i0 + 1}-{i1}) "
+            f"against the unsharded fit's {b1_ips:.2f} | peak {peak:.2f} GiB against "
+            f"{b1_peak:.2f} (every block on one card: the peak is not expected to fall) | loss "
+            f"{loss[0]:.6g} -> {loss[-1]:.6g} | launches {delta} ({blocks} x one fit's) | "
+            f"{tf32_flags()} | card {card}")
+        if delta != want:
+            raise RuntimeError(f"sharded launch counts {delta} != {want}")
+        if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
+            raise RuntimeError(f"the sharded fit's loss is not finite and falling: {loss}")
+        if tuple(out.shape) != (1, size, size, 3) or not torch.isfinite(out).all():
+            raise RuntimeError(f"bad sharded render {tuple(out.shape)}")
+        total = {k: total.get(k, 0) + v for k, v in delta.items()}
+        eng.step(state, aux)
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                eng.step(state, aux)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize(dev)
+        log(f"[sync] SpatialEngine {tag}: 3 sharded steps made no host sync")
+        del eng, state, aux, out
     return total
 
 
@@ -2328,6 +2787,7 @@ def main() -> int:
     down = phase_downsample_parity(dev)
     s2d = phase_s2d_parity(dev)
     wgrad = phase_wgrad_parity(dev)
+    wgrad_fits = phase_wgrad_fit_axis_parity(dev)
     phase_small_reference(dev)
     phase_zoo_small_reference(dev)
     launches, b1_ips = phase_main_path(dev, card)
@@ -2337,7 +2797,8 @@ def main() -> int:
     phase_steps_without_sync(dev)
     phase_graph(dev, card)
     b8_ips = phase_queue(dev, card, b1_ips)
-    batch_launches = phase_batch(dev, card, b8_ips)
+    batch_launches, batch_f32_wgrad = phase_batch(dev, card, b8_ips)
+    phase_spatial(dev, card)
     phase_fleet(dev, card)
     phase_flash(dev, card)
     phase_checkpoint(dev, card)
@@ -2373,6 +2834,17 @@ def main() -> int:
         entry = _entry(k, src_rep, masked_launches[k], wgrad[k])
         entry["sources"] = {str(d)[6:]: src for d, src in WGRAD_SOURCES.items()}
         entry["f32"] = wgrad[k]["f32"]
+        kernels.append(entry)
+    # the weight gradients' fit axis: launches from the [batch] 'kate' fits
+    # with conv_wgrad='all', figures at B = 8 fits of the top 'kate' shape.
+    # The row's launches are the bf16 fit-axis launches; the f32 fits run
+    # the single-fit kernel once a fit, counted under "f32" with its times
+    for k, src_rep in WGRAD.items():
+        entry = _entry(f"{k} (fit axis)", src_rep, batch_launches[k] - batch_f32_wgrad[k],
+                       wgrad_fits[k])
+        entry["sources"] = {str(d)[6:]: src for d, src in WGRAD_SOURCES.items()}
+        entry["f32"] = dict(wgrad_fits[k]["f32"], single_fit_launches=batch_f32_wgrad[k])
+        entry["fits"] = BATCH_FITS
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -458,3 +458,20 @@ extern "C" int dip_wgrad1x1_mma(const void* x, const void* g, void* ws, void* dw
                                 void* stream) {
   return wgrad_mma<1>(x, g, ws, dw, 1, n, h, w, ci, co, splits, per, dw_is_f32, stream);
 }
+
+// K5 and K6 in bf16 with a fit axis (BatchEngine's convs, each fit its own
+// weight): the N images are `fits` runs of N / fits, dw (fits,k,k,Ci,Co),
+// fit b summing its own run only, split as one fit's N / fits images are,
+// so a fit's bits are those of its single-fit launch. ws holds fits *
+// splits * taps * Ci * ld floats.
+extern "C" int dip_wgrad3x3_mma_fits(const void* x, const void* g, void* ws, void* dw, int fits,
+                                     int n, int h, int w, int ci, int co, int splits, int per,
+                                     int dw_is_f32, void* stream) {
+  return wgrad_mma<3>(x, g, ws, dw, fits, n, h, w, ci, co, splits, per, dw_is_f32, stream);
+}
+
+extern "C" int dip_wgrad1x1_mma_fits(const void* x, const void* g, void* ws, void* dw, int fits,
+                                     int n, int h, int w, int ci, int co, int splits, int per,
+                                     int dw_is_f32, void* stream) {
+  return wgrad_mma<1>(x, g, ws, dw, fits, n, h, w, ci, co, splits, per, dw_is_f32, stream);
+}

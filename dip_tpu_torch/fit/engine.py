@@ -57,6 +57,7 @@ Semantics (as the JAX engine):
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable
 
@@ -461,13 +462,14 @@ class Engine:
     def _warmup(self, state: FitState, aux: Any) -> None:
         """The L-BFGS fit's warm-up (the JAX engine's `_warmup`):
         cfg.lbfgs_warmup Adam steps at cfg.lbfgs_warmup_lr with
-        backtracking off, through an Adam engine on this fit's model,
+        backtracking off, through a copy of this engine with that Adam
+        config (so a subclass warms up its own way) on this fit's model,
         params, EMA, jitter streams and step counters (graphed on CUDA);
         their metrics are dropped. Then a fresh L-BFGS state."""
         cfg = self.cfg
-        warm = Engine(self.model, self.loss_fn, dataclasses.replace(
-            cfg, optimizer="adam", lr=cfg.lbfgs_warmup_lr, num_iter=cfg.lbfgs_warmup,
-            backtrack=False), self.metrics_fn, device=self.device)
+        warm = copy.copy(self)
+        warm.cfg = dataclasses.replace(cfg, optimizer="adam", lr=cfg.lbfgs_warmup_lr,
+                                       num_iter=cfg.lbfgs_warmup, backtrack=False)
         wstate = dataclasses.replace(state, opt=warm._optimizer(state.params), snapshot={},
                                      graph=None)
         warm.run(wstate, aux)

@@ -22,7 +22,9 @@ sets the parameters to x + t d and calls it again. The two-loop recursion
 runs on the parameters' device; each trial's Wolfe test is read on the
 host (the value and the slope, one sync a trial), so a step cannot be
 captured in a CUDA graph. The scalar arithmetic of the line search is
-f32, as optax's.
+f32, as optax's. `BatchZoomLBFGS` runs B fits' L-BFGS at once for
+BatchEngine, their line searches in lockstep, one evaluation of all the
+fits a round.
 """
 
 from __future__ import annotations
@@ -74,11 +76,13 @@ def _curvature_error(slope, slope_init):
     return _f32(np.inf) if np.isnan(err) else err
 
 
-def zoom_linesearch(evaluate, value_init: float, slope_init: float) -> tuple[float, int]:
-    """The step size along a direction, and the trials it took:
-    `evaluate(t)` -> (value, slope) at step t, slope the directional
-    derivative there; value_init and slope_init at t = 0. optax's
-    zoom_linesearch with its defaults, step for step."""
+def zoom_search(value_init: float, slope_init: float):
+    """optax's zoom_linesearch with its defaults, step for step, as a
+    generator: it yields each trial step t and is sent back (value, slope)
+    at t, slope the directional derivative there; value_init and
+    slope_init are at t = 0. It returns (step size, trials) (the value of
+    its StopIteration). Many of them advance in lockstep where many
+    independent line searches share one evaluation a round (BatchZoomLBFGS)."""
     v0, s0 = _f32(value_init), _f32(slope_init)
     # the last trial, its decrease error, the interval's ends (low has the
     # lower value), the cubic's third point, and the best trial with a
@@ -88,8 +92,10 @@ def zoom_linesearch(evaluate, value_init: float, slope_init: float) -> tuple[flo
     safe, v_safe = _f32(0), v0
     interval_found = done = failed = False
     count = 0
-    with np.errstate(all="ignore"):
-        while not (done or failed):
+    # numpy's error state is set around the arithmetic only, not across a
+    # yield: searches that advance in lockstep interleave
+    while not (done or failed):
+        with np.errstate(all="ignore"):
             prev = (t, value, slope)
             if not interval_found:
                 # grow the step until an interval brackets a Wolfe point
@@ -106,7 +112,8 @@ def zoom_linesearch(evaluate, value_init: float, slope_init: float) -> tuple[flo
                     t = _f32(quad)
                 else:
                     t = (lo + hi) / _f32(2)
-            value, slope = (_f32(v) for v in evaluate(float(t)))
+        value, slope = (_f32(v) for v in (yield float(t)))
+        with np.errstate(all="ignore"):
             dec = _decrease_error(t, value, slope, v0, s0)
             done = np.maximum(dec, _curvature_error(slope, s0)) <= 0
             last = count + 1 >= MAX_LINESEARCH_STEPS
@@ -137,6 +144,20 @@ def zoom_linesearch(evaluate, value_init: float, slope_init: float) -> tuple[flo
             if failed and (safe > 0 or np.isinf(dec)):
                 t = safe
     return float(t), count
+
+
+def zoom_linesearch(evaluate, value_init: float, slope_init: float) -> tuple[float, int]:
+    """The step size along a direction, and the trials it took:
+    `evaluate(t)` -> (value, slope) at step t, slope the directional
+    derivative there; value_init and slope_init at t = 0 (zoom_search,
+    driven by one evaluation a trial)."""
+    search = zoom_search(value_init, slope_init)
+    t = next(search)
+    while True:
+        try:
+            t = search.send(evaluate(t))
+        except StopIteration as stop:
+            return stop.value
 
 
 class ZoomLBFGS(torch.optim.Optimizer):
@@ -228,4 +249,105 @@ class ZoomLBFGS(torch.optim.Optimizer):
         st["x_prev"], st["g_prev"] = x, g
         st["count"] += 1
         self.last_evals = 1 + trials
+        return loss
+
+
+class BatchZoomLBFGS(ZoomLBFGS):
+    """ZoomLBFGS for B independent fits at once (parallel/batch.py): every
+    parameter has the fits on its leading axis, and `closure()` returns the
+    B losses (the gradients it sets are each fit's own: the fits share no
+    parameter). Each fit has its own memory, directions and dot products,
+    taken on the device over its own (B, P) row. Its B line searches
+    (zoom_search) advance in lockstep: each round, one closure call
+    evaluates every fit at its own trial x_i + t_i d_i, and one host read
+    brings back the B values and slopes; a fit whose search has ended sits
+    at its accepted step, and what later rounds compute for it is
+    discarded. So no fit's steps depend on another's. `last_evals` holds
+    each fit's value-and-gradient evaluations of the last step."""
+
+    def __init__(self, params):
+        super().__init__(params)
+        self.fits = self._params[0].shape[0]
+        if any(p.dim() == 0 or p.shape[0] != self.fits for p in self._params):
+            raise ValueError("every parameter needs the fits on its leading axis")
+        self.last_evals = [0] * self.fits
+
+    def _flat(self, grads: bool = False) -> torch.Tensor:
+        return torch.cat([(p if not grads else torch.zeros_like(p) if p.grad is None
+                           else p.grad).reshape(self.fits, -1) for p in self._params], dim=1)
+
+    def _set(self, flat: torch.Tensor) -> None:
+        off = 0
+        for p in self._params:
+            n = p[0].numel()
+            p.copy_(flat[:, off:off + n].view_as(p))
+            off += n
+
+    def _memory(self, x: torch.Tensor, g: torch.Tensor) -> dict:
+        st = self.state[self._params[0]]
+        if not st:
+            st.update(count=0, x_prev=torch.zeros_like(x), g_prev=torch.zeros_like(g),
+                      dw=x.new_zeros((MEMORY, *x.shape)), du=x.new_zeros((MEMORY, *x.shape)),
+                      rho=x.new_zeros((MEMORY, self.fits)))
+        if st["count"] > 0:
+            i = (st["count"] - 1) % MEMORY
+            dw, du = x - st["x_prev"], g - st["g_prev"]
+            curv = (du * dw).sum(1)
+            st["dw"][i] = dw
+            st["du"][i] = du
+            st["rho"][i] = torch.where(curv == 0, 0.0, 1.0 / curv)
+        return st
+
+    def _direction(self, st: dict, g: torch.Tensor) -> torch.Tensor:
+        k = st["count"]
+        if k > 0:
+            dw, du = st["dw"][(k - 1) % MEMORY], st["du"][(k - 1) % MEMORY]
+            den = (du * du).sum(1)
+            gamma = torch.where(den > 0, (du * dw).sum(1) / den, 1.0)
+        else:
+            gamma = torch.clamp(1.0 / torch.linalg.vector_norm(g, dim=1), max=1.0)
+        order = [(k + j) % MEMORY for j in range(MEMORY)]
+        v, alphas = g, {}
+        for i in reversed(order):
+            alphas[i] = st["rho"][i] * (st["dw"][i] * v).sum(1)
+            v = v - alphas[i][:, None] * st["du"][i]
+        v = v * gamma[:, None]
+        for i in order:
+            beta = st["rho"][i] * (st["du"][i] * v).sum(1)
+            v = v + (alphas[i] - beta)[:, None] * st["dw"][i]
+        return -v
+
+    @torch.no_grad()
+    def step(self, closure):
+        """One L-BFGS step of every fit; `closure()` sets the gradients and
+        returns the (B,) losses. Returns the losses at the parameters as
+        they were."""
+        with torch.enable_grad():
+            loss = closure()
+        x, g = self._flat(), self._flat(grads=True)
+        st = self._memory(x, g)
+        d = self._direction(st, g)
+        values, slopes = torch.stack([loss.detach().float(), (g * d).sum(1)]).tolist()
+        searches = [zoom_search(v, s) for v, s in zip(values, slopes)]
+        steps = [next(s) for s in searches]
+        ended: list[tuple[float, int] | None] = [None] * self.fits
+        while not all(ended):
+            t = torch.tensor(steps, dtype=x.dtype, device=x.device)
+            self._set(torch.addcmul(x, t[:, None], d))
+            with torch.enable_grad():
+                value = closure().detach()
+            values, slopes = torch.stack([value.float(),
+                                          (self._flat(grads=True) * d).sum(1)]).tolist()
+            for i, search in enumerate(searches):
+                if ended[i] is None:
+                    try:
+                        steps[i] = search.send((values[i], slopes[i]))
+                    except StopIteration as stop:
+                        ended[i] = stop.value
+                        steps[i] = stop.value[0]
+        t = torch.tensor(steps, dtype=x.dtype, device=x.device)
+        self._set(torch.addcmul(x, t[:, None], d))
+        st["x_prev"], st["g_prev"] = x, g
+        st["count"] += 1
+        self.last_evals = [1 + trials for _, trials in ended]
         return loss

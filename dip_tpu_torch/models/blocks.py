@@ -6,6 +6,11 @@ Counterpart of dip_tpu/models/blocks.py. Convolution weights are OIHW
 F.conv2d takes without a copy. BatchNorm is always in train mode and keeps
 no running statistics: DIP fits one image, so batch statistics are the
 image's statistics.
+
+Conv, TrainBatchNorm, `act` and the crops take row blocks (ops/rows.Rows)
+where they take a tensor, for parallel/spatial.py: a padded conv reads its
+halo rows from the neighbouring blocks, and BN's moments sum over all of
+them.
 """
 
 from __future__ import annotations
@@ -18,8 +23,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dip_tpu_torch.ops import hopper_wgrad
-from dip_tpu_torch.ops.pad import pad2d
+from dip_tpu_torch.ops.pad import _MODES, pad2d
 from dip_tpu_torch.ops.resample import avg_pool, downsample, max_pool
+from dip_tpu_torch.ops.rows import Rows, cat_channels, halo_blocks
 from dip_tpu_torch.ops.up_conv import Up2, up2_conv3x3, up2_moments
 
 # which convs take their weight gradient from the Hopper kernels (the JAX
@@ -48,7 +54,9 @@ def torch_conv_init_(weight: torch.Tensor, bias: torch.Tensor | None,
                 p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
 
 
-def act(x: torch.Tensor, act_fun: str | Callable = "LeakyReLU") -> torch.Tensor:
+def act(x: torch.Tensor | Rows, act_fun: str | Callable = "LeakyReLU"):
+    if isinstance(x, Rows):
+        return x.map(lambda b: act(b, act_fun))
     if callable(act_fun):
         return act_fun(x)
     if act_fun == "LeakyReLU":
@@ -174,6 +182,26 @@ def _conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int,
     return y.permute(0, 2, 3, 1)
 
 
+def _pad_conv(x: torch.Tensor | Rows, weight: torch.Tensor, stride: int, to_pad: int,
+              pad: str, wgrad: str):
+    """conv of x padded by `to_pad` on each side as `pad` pads. Over row
+    blocks, each block takes `to_pad` halo rows (the pad's own rows past
+    the image's true top and bottom), is padded along W, and runs a VALID
+    conv: a stride-2 window starts on the block's first row, which is even
+    wherever the block heights are."""
+    if isinstance(x, Rows):
+        if to_pad == 0:
+            return x.map(lambda b: _conv2d(b, weight.to(b.device), stride, 0, wgrad))
+        if pad not in _MODES:
+            raise ValueError(f"unknown pad mode {pad!r}")
+        return Rows([_conv2d(pad2d(xr, (0, to_pad), pad), weight.to(xr.device), stride, 0,
+                             wgrad)
+                     for xr in halo_blocks(x, to_pad, to_pad, _MODES[pad])])
+    if pad in ("reflection", "replication") and to_pad > 0:
+        return _conv2d(pad2d(x, to_pad, pad), weight, stride, 0, wgrad)
+    return _conv2d(x, weight, stride, to_pad, wgrad)
+
+
 class Conv(nn.Module):
     """Padded conv; takes a tensor or a list of NHWC parts (a virtual
     channel concat: conv(concat(parts), W) == sum_i conv(part_i, W_i)).
@@ -237,10 +265,8 @@ class Conv(nn.Module):
                     off += ci
                     continue
                 yi = up2_conv3x3(p.x, kp.permute(2, 3, 1, 0), p.mode, self.pad)
-            elif self.pad in ("reflection", "replication") and to_pad > 0:
-                yi = _conv2d(pad2d(p, to_pad, self.pad), kp, stride, 0, wgrad)
             else:
-                yi = _conv2d(p, kp, stride, to_pad, wgrad)
+                yi = _pad_conv(p, kp, stride, to_pad, self.pad, wgrad)
             y = yi if y is None else y + yi
             off += ci
         if in_shift is not None:
@@ -307,7 +333,8 @@ def reset_parameters_(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def crop_to_min(tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-    """Centre-crop all NHWC inputs to the smallest common H, W."""
+    """Centre-crop all NHWC inputs to the smallest common H, W (row blocks
+    along W only: Rows refuses a crop along H)."""
     th = min(t.shape[1] for t in tensors)
     tw = min(t.shape[2] for t in tensors)
     out = []
@@ -319,4 +346,7 @@ def crop_to_min(tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
 
 
 def concat_cropped(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.cat(crop_to_min(tensors), dim=-1)
+    parts = crop_to_min(tensors)
+    if isinstance(parts[0], Rows):
+        return cat_channels(parts)
+    return torch.cat(parts, dim=-1)

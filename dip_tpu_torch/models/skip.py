@@ -11,7 +11,8 @@ Counterpart of dip_tpu/models/skip.py:
 
 The convs and BNs are created in the order the flax module creates them,
 so `convs.{i}` is flax's `Conv_{i}` and `bns.{i}` its `TrainBatchNorm_{i}`
-(dip_tpu_torch/interop.py maps one onto the other).
+(dip_tpu_torch/interop.py maps one onto the other). `forward` takes row
+blocks (ops/rows.Rows) as well as a tensor: parallel/spatial.py runs it so.
 """
 
 from __future__ import annotations
@@ -166,7 +167,7 @@ class Skip(nn.Module):
                 u = cba(u)
 
         u = next(convs)(u, conv_wgrad=wgrad)
-        return torch.sigmoid(u) if self.need_sigmoid else u
+        return u.sigmoid() if self.need_sigmoid else u
 
 
 def skip(num_input_channels: int = 2, num_output_channels: int = 3, **kwargs) -> Skip:

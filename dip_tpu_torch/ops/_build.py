@@ -115,6 +115,10 @@ def load() -> ctypes.CDLL:
     # x, g, workspace, dW, n, h, w, ci, co, splits, tiles a split, f32, stream
     lib.dip_wgrad3x3_mma.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
     lib.dip_wgrad1x1_mma.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
+    # the same with a fit axis: x, g, workspace, dW, fits, n, h, w, ci, co,
+    # splits, tiles a split, f32, stream
+    lib.dip_wgrad3x3_mma_fits.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
+    lib.dip_wgrad1x1_mma_fits.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
     # x, taps, out, n, h, w, c, h_out, w_out, factor, K, pad, tile_h, tile_w,
     # channels a block, stream
     lib.dip_downsample.argtypes = [ptr, ptr, ptr] + [i32] * 12 + [ptr]
@@ -124,7 +128,8 @@ def load() -> ctypes.CDLL:
     # ks, halo, splits, tiles a split, slab row pitch, stream
     lib.dip_wgrad_f32.argtypes = [ptr] * 4 + [i32] * 7 + [i64] * 8 + [i32] * 5 + [ptr]
     for fn in (lib.dip_up_conv_fwd, lib.dip_up_conv_dgrad, lib.dip_up_conv_wgrad,
-               lib.dip_wgrad3x3_mma, lib.dip_wgrad1x1_mma, lib.dip_downsample,
+               lib.dip_wgrad3x3_mma, lib.dip_wgrad1x1_mma, lib.dip_wgrad3x3_mma_fits,
+               lib.dip_wgrad1x1_mma_fits, lib.dip_downsample,
                lib.dip_s2d_pack, lib.dip_wgrad_f32):
         fn.restype = i32
     _lib = lib

@@ -33,6 +33,19 @@ convolution_backward (the JAX package keeps dgrad on XLA), weight
 gradient the kernel, rounded once to the weight's dtype. Each wrapper takes
 its plain version only when every tensor lies on the CPU; on CUDA tensors
 it launches the kernel or raises. Each launch adds one to `LAUNCHES`.
+
+The fit axis (parallel/batch.py's BatchEngine, B fits each with its own
+weight): both wrappers take `fits` = B, x and g then holding B runs of
+N/B images, and give dW (B,k,k,Ci,Co), fit b's summed over its own run
+only. In bf16 one launch serves the B fits (`dip_wgrad3x3_mma_fits`,
+`dip_wgrad1x1_mma_fits`: K3's per-fit slabs and sum pass, a fit's split
+plan, so a fit's bits are those of its single-fit launch); in f32 the
+wrapper launches the f32 kernel once a fit, on each fit's slice as it
+lies (`csrc/wgrad.cu` has no fit axis), and counts B launches. Under
+torch.func.vmap the Functions' vmap rules fold the fits into N where the
+weight is shared, and run `ConvFits` where it is batched: the forward and
+the data gradient grouped cuDNN convolutions (groups = B, as BatchEngine's
+other convs), the weight gradient the kernel with the fit axis.
 """
 
 from __future__ import annotations
@@ -64,8 +77,18 @@ def reset_launches() -> None:
 # -- plain versions -------------------------------------------------------------
 
 
-def wgrad3x3_s1_plain(x: torch.Tensor, g: torch.Tensor, halo: int = 1) -> torch.Tensor:
-    """K5's plain version: one f32 einsum per tap over the shifted slices."""
+def _per_fit(plain, x: torch.Tensor, g: torch.Tensor, fits: int, *args) -> torch.Tensor:
+    """A plain version per fit: (fits, k, k, Ci, Co), fit b's from its own
+    run of N/fits images."""
+    return torch.stack([plain(xb, gb, *args) for xb, gb in zip(x.chunk(fits), g.chunk(fits))])
+
+
+def wgrad3x3_s1_plain(x: torch.Tensor, g: torch.Tensor, halo: int = 1,
+                      fits: int | None = None) -> torch.Tensor:
+    """K5's plain version: one f32 einsum per tap over the shifted slices
+    (per fit with `fits`)."""
+    if fits is not None:
+        return _per_fit(wgrad3x3_s1_plain, x, g, fits, halo)
     h, w = _check(x, g, 3, halo)
     xf, gf = x.float(), g.float()
     if halo:
@@ -75,8 +98,10 @@ def wgrad3x3_s1_plain(x: torch.Tensor, g: torch.Tensor, halo: int = 1) -> torch.
     return dw.reshape(3, 3, x.shape[3], g.shape[3])
 
 
-def wgrad1x1_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """K6's plain version: one f32 einsum over N*H*W."""
+def wgrad1x1_plain(x: torch.Tensor, g: torch.Tensor, fits: int | None = None) -> torch.Tensor:
+    """K6's plain version: one f32 einsum over N*H*W (per fit with `fits`)."""
+    if fits is not None:
+        return _per_fit(wgrad1x1_plain, x, g, fits)
     _check(x, g, 1, 0)
     return torch.einsum("nhwc,nhwk->ck", x.float(), g.float())[None, None]
 
@@ -84,8 +109,11 @@ def wgrad1x1_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # -- kernel wrappers ------------------------------------------------------------
 
 
-def _check(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int) -> tuple[int, int]:
+def _check(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int,
+           fits: int | None = None) -> tuple[int, int]:
     """(H, W) of g; raises outside the kernels' envelope."""
+    if fits is not None and (fits < 1 or x.dim() < 1 or x.shape[0] % fits):
+        raise ValueError(f"{fits} fits do not divide the images of x {tuple(x.shape)}")
     if halo not in (0, 1) or (ks == 1 and halo):
         raise ValueError(f"halo {halo} is not one of the kernel's ({ks}x{ks})")
     if x.dim() != 4 or g.dim() != 4 or x.shape[0] != g.shape[0]:
@@ -179,48 +207,64 @@ def _pad8(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch_mma(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int) -> torch.Tensor:
+def _launch_mma(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int,
+                fits: int | None = None) -> torch.Tensor:
     """The bf16 mma.sync kernel (3x3 or its one-tap 1x1 form) on NHWC-dense
     operands, each copied once at most; the 1x1's zero-padded channels add
-    zero rows and columns to dW, which are cut off."""
+    zero rows and columns to dW, which are cut off. With `fits`, one launch
+    through the fit-axis entry, each fit split as one fit's images are."""
     xd, gd = _k5_operands(x, g, halo) if ks == 3 else (_pad8(x), _pad8(g))
     n, h, w, co = gd.shape
     ci = xd.shape[3]
-    plan = hopper_up_conv.wgrad_mma_plan(n, h, w, ci, co, ks * ks)
-    ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
-    dw = torch.empty((ks, ks, ci, co), dtype=torch.float32, device=x.device)
+    b = 1 if fits is None else fits
+    plan = hopper_up_conv.wgrad_mma_plan(n // b, h, w, ci, co, ks * ks)
+    lead = () if fits is None else (fits,)
+    ws = torch.empty((*lead, *plan.workspace), dtype=torch.float32, device=x.device)
+    dw = torch.empty((*lead, ks, ks, ci, co), dtype=torch.float32, device=x.device)
     lib = _build.load()
-    entry = lib.dip_wgrad3x3_mma if ks == 3 else lib.dip_wgrad1x1_mma
-    rc = entry(xd.data_ptr(), gd.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, w, ci, co,
-               plan.splits, plan.tiles_per_split, 1, _build.stream())
+    args = (n, h, w, ci, co, plan.splits, plan.tiles_per_split, 1, _build.stream())
+    if fits is None:
+        entry = lib.dip_wgrad3x3_mma if ks == 3 else lib.dip_wgrad1x1_mma
+    else:
+        entry = lib.dip_wgrad3x3_mma_fits if ks == 3 else lib.dip_wgrad1x1_mma_fits
+        args = (fits, *args)
+    rc = entry(xd.data_ptr(), gd.data_ptr(), ws.data_ptr(), dw.data_ptr(), *args)
     _build.raise_on(rc, f"wgrad {ks}x{ks} bf16")
     return dw[..., :x.shape[3], :g.shape[3]]
 
 
-def _launch(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int) -> torch.Tensor:
-    if x.dtype == torch.bfloat16:
-        return _launch_mma(x, g, ks, halo)
-    return _launch_f32(x, g, ks, halo)
+def _launch(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int, fits: int | None,
+            name: str) -> torch.Tensor:
+    """The kernel for x's dtype, its launches counted under `name`: one in
+    bf16, one a fit in f32 (the f32 kernel has no fit axis)."""
+    if x.dtype == torch.bfloat16 or fits is None:
+        dw = (_launch_mma(x, g, ks, halo, fits) if x.dtype == torch.bfloat16
+              else _launch_f32(x, g, ks, halo))
+        LAUNCHES[name] += 1
+        return dw
+    dws = []
+    for xb, gb in zip(x.chunk(fits), g.chunk(fits)):
+        dws.append(_launch_f32(xb, gb, ks, halo))
+        LAUNCHES[name] += 1
+    return torch.stack(dws)
 
 
-def wgrad3x3_s1(x: torch.Tensor, g: torch.Tensor, halo: int = 1) -> torch.Tensor:
-    """dW (3,3,Ci,Co) f32 of a stride-1 3x3 conv (see the module docstring)."""
-    _check(x, g, 3, halo)
+def wgrad3x3_s1(x: torch.Tensor, g: torch.Tensor, halo: int = 1,
+                fits: int | None = None) -> torch.Tensor:
+    """dW (3,3,Ci,Co) f32 of a stride-1 3x3 conv (see the module docstring);
+    with `fits`, (fits,3,3,Ci,Co), fit b's from its own run of images."""
+    _check(x, g, 3, halo, fits)
     if _build.on_cpu(x=x, g=g):
-        return wgrad3x3_s1_plain(x, g, halo)
-    dw = _launch(x, g, 3, halo)
-    LAUNCHES["wgrad3x3_s1"] += 1
-    return dw
+        return wgrad3x3_s1_plain(x, g, halo, fits)
+    return _launch(x, g, 3, halo, fits, "wgrad3x3_s1")
 
 
-def wgrad1x1(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """dW (1,1,Ci,Co) f32 of a 1x1 conv."""
-    _check(x, g, 1, 0)
+def wgrad1x1(x: torch.Tensor, g: torch.Tensor, fits: int | None = None) -> torch.Tensor:
+    """dW (1,1,Ci,Co) f32 of a 1x1 conv; with `fits`, (fits,1,1,Ci,Co)."""
+    _check(x, g, 1, 0, fits)
     if _build.on_cpu(x=x, g=g):
-        return wgrad1x1_plain(x, g)
-    dw = _launch(x, g, 1, 0)
-    LAUNCHES["wgrad1x1"] += 1
-    return dw
+        return wgrad1x1_plain(x, g, fits)
+    return _launch(x, g, 1, 0, fits, "wgrad1x1")
 
 
 # -- autograd -------------------------------------------------------------------
@@ -247,16 +291,41 @@ def _to_oihw(dw: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return dw.permute(3, 2, 0, 1).to(weight.dtype)
 
 
+def _vmap_conv(info, in_dims, x: torch.Tensor, weight: torch.Tensor,
+               halo: int, shared) -> tuple[torch.Tensor, int]:
+    """The vmap rule of Conv3x3S1 (halo 0 or 1) and Conv1x1 (halo None):
+    with a shared weight the fits fold into N (`shared`, the Function
+    itself); with a batched weight ConvFits runs the B fits."""
+    b = info.batch_size
+    x_dim, w_dim = in_dims[0], in_dims[1]
+    x = hopper_up_conv._batch_first(x, x_dim, b)
+    folded = x.reshape(-1, *x.shape[2:])
+    if w_dim is None:
+        out = shared(folded, weight) if halo is None else shared(folded, weight, halo)
+    else:
+        out = ConvFits.apply(folded, weight.movedim(w_dim, 0), 1 if halo is None else halo)
+    return out.reshape(b, x.shape[1], *out.shape[1:]), 0
+
+
 class Conv3x3S1(torch.autograd.Function):
     """Stride-1 3x3 conv, NHWC x and OIHW weight: halo=1 pads x with zeros
     (padding 1), halo=0 takes x padded already (VALID). Backward: cuDNN's
-    data gradient, K5's weight gradient."""
+    data gradient, K5's weight gradient. Under torch.func.vmap, see
+    `_vmap_conv`."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, halo: int) -> torch.Tensor:
+    def forward(x: torch.Tensor, weight: torch.Tensor, halo: int) -> torch.Tensor:
+        return _conv(x, weight, halo)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        x, weight, halo = inputs
         ctx.save_for_backward(x, weight)
         ctx.halo = halo
-        return _conv(x, weight, halo)
+
+    @staticmethod
+    def vmap(info, in_dims, x, weight, halo):
+        return _vmap_conv(info, in_dims, x, weight, halo, conv3x3_s1)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -267,18 +336,81 @@ class Conv3x3S1(torch.autograd.Function):
 
 class Conv1x1(torch.autograd.Function):
     """1x1 conv, NHWC x and OIHW weight. Backward: cuDNN's data gradient,
-    K6's weight gradient."""
+    K6's weight gradient. Under torch.func.vmap, see `_vmap_conv`."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(x, weight)
+    def forward(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         return _conv(x, weight, 0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def vmap(info, in_dims, x, weight):
+        return _vmap_conv(info, in_dims, x, weight, None, conv1x1)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         x, weight = ctx.saved_tensors
         dw = _to_oihw(wgrad1x1(x, g), weight) if ctx.needs_input_grad[1] else None
         return _dgrad(ctx, g, x, weight, 0), dw
+
+
+def _grouped(t: torch.Tensor, fits: int) -> torch.Tensor:
+    """(B*N, H, W, K) fit-major -> (N, H, W, B*K), fit b's channels at
+    [b*K, (b+1)*K): a grouped convolution's layout."""
+    bn, h, w, k = t.shape
+    return t.reshape(fits, bn // fits, h, w, k).permute(1, 2, 3, 0, 4).reshape(
+        bn // fits, h, w, fits * k)
+
+
+def _ungrouped(t: torch.Tensor, fits: int) -> torch.Tensor:
+    """_grouped's inverse: (N, H, W, B*K) -> (B*N, H, W, K)."""
+    n, h, w, bk = t.shape
+    return t.reshape(n, h, w, fits, bk // fits).permute(3, 0, 1, 2, 4).reshape(
+        fits * n, h, w, bk // fits)
+
+
+class ConvFits(torch.autograd.Function):
+    """B fits' stride-1 convs at once, each fit its own weight: x (B*N,
+    Hx, Wx, Ci) fit-major, weight (B, Co, Ci, k, k), halo as Conv3x3S1's
+    (1 pads with zeros, 0 takes x padded; a 1x1 conv passes 1 and pads
+    nothing) -> (B*N, H, W, Co). Forward and data gradient: one grouped
+    cuDNN convolution each (groups = B); weight gradient: K5 or K6 with the
+    fit axis (one launch in bf16, one a fit in f32)."""
+
+    @staticmethod
+    def forward(x: torch.Tensor, weight: torch.Tensor, halo: int) -> torch.Tensor:
+        fits, ks = weight.shape[0], weight.shape[-1]
+        pad = halo if ks == 3 else 0
+        y = F.conv2d(_grouped(x, fits).permute(0, 3, 1, 2), weight.reshape(-1, *weight.shape[2:]),
+                     None, 1, pad, 1, fits)
+        return _ungrouped(y.permute(0, 2, 3, 1), fits)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        x, weight, halo = inputs
+        ctx.save_for_backward(x, weight)
+        ctx.halo = halo
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, weight = ctx.saved_tensors
+        fits, ks = weight.shape[0], weight.shape[-1]
+        pad = ctx.halo if ks == 3 else 0
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w2 = weight.reshape(-1, *weight.shape[2:])
+            dx = torch.ops.aten.convolution_backward(
+                _grouped(g, fits).permute(0, 3, 1, 2), _grouped(x, fits).permute(0, 3, 1, 2),
+                w2, None, (1, 1), (pad, pad), (1, 1), False, (0, 0), fits,
+                (True, False, False))[0]
+            dx = _ungrouped(dx.permute(0, 2, 3, 1), fits)
+        if ctx.needs_input_grad[1]:
+            dwf = (wgrad3x3_s1(x, g, ctx.halo, fits) if ks == 3 else wgrad1x1(x, g, fits))
+            dw = dwf.permute(0, 4, 3, 1, 2).to(weight.dtype)
+        return dx, dw, None
 
 
 def conv3x3_s1(x: torch.Tensor, weight: torch.Tensor, halo: int) -> torch.Tensor:

@@ -67,7 +67,11 @@ class _EdgePad(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g: torch.Tensor):
         ph, pw = ctx.pads
-        return _fold(_fold(g, pw, 2, ctx.mode), ph, 1, ctx.mode), None, None, None
+        # _fold adds into the centre of what it is given, a view where that
+        # is contiguous: never into g itself, which autograd may hand to
+        # other nodes too (the W fold copies; with pw = 0 copy here)
+        gw = _fold(g, pw, 2, ctx.mode) if pw else g.clone()
+        return _fold(gw, ph, 1, ctx.mode), None, None, None
 
 
 def pad2d(x: torch.Tensor, pad: int | tuple[int, int],

@@ -1,7 +1,8 @@
 """Spatial resampling of NHWC tensors (counterpart of dip_tpu/ops/resample.py
 and dip_tpu/ops/pallas_resample.py).
 
-`upsample` is the decoder's 2x resize. `downsample` is the anti-aliased
+`upsample` is the decoder's 2x resize; it and the pools take row blocks
+(ops/rows.Rows) too. `downsample` is the anti-aliased
 downsampler, the differentiable degradation operator of super-resolution:
 
   - kernel construction (`resample_kernel_1d`, `resample_kernel_2d`) is
@@ -31,11 +32,20 @@ import torch.nn.functional as F
 from dip_tpu_torch.ops import hopper_resample
 from dip_tpu_torch.ops.consts import device_const
 from dip_tpu_torch.ops.pad import pad2d
+from dip_tpu_torch.ops.rows import Rows, halo_blocks
 
 
-def upsample(x: torch.Tensor, scale: int = 2, mode: str = "nearest") -> torch.Tensor:
+def upsample(x: torch.Tensor | Rows, scale: int = 2, mode: str = "nearest"):
     """'nearest' duplicates pixels; 'bilinear' uses half-pixel centres
-    (`align_corners=False`), the resize the JAX package implements."""
+    (`align_corners=False`), the resize the JAX package implements. Over
+    row blocks, bilinear resizes each block with a halo row a side (edge
+    replication at the image's true top and bottom, the resize's clamp)
+    and cuts the halo's output rows off."""
+    if isinstance(x, Rows):
+        if mode == "nearest":
+            return x.map(lambda b: upsample(b, scale, mode))
+        return Rows([upsample(xr, scale, mode)[:, scale:-scale]
+                     for xr in halo_blocks(x, 1, 1, "replicate")])
     if mode == "nearest":
         y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=scale, mode="nearest")
     elif mode == "bilinear":
@@ -46,14 +56,20 @@ def upsample(x: torch.Tensor, scale: int = 2, mode: str = "nearest") -> torch.Te
     return y.permute(0, 2, 3, 1)
 
 
-def avg_pool(x: torch.Tensor, window: int, stride: int | None = None) -> torch.Tensor:
-    """Mean over `window` x `window` NHWC windows, VALID."""
+def avg_pool(x: torch.Tensor | Rows, window: int, stride: int | None = None):
+    """Mean over `window` x `window` NHWC windows, VALID; per block over
+    row blocks whose heights the stride divides."""
+    if isinstance(x, Rows):
+        return x.map(lambda b: avg_pool(b, window, stride))
     y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, window if stride is None else stride)
     return y.permute(0, 2, 3, 1)
 
 
-def max_pool(x: torch.Tensor, window: int, stride: int | None = None) -> torch.Tensor:
-    """Max over `window` x `window` NHWC windows, VALID."""
+def max_pool(x: torch.Tensor | Rows, window: int, stride: int | None = None):
+    """Max over `window` x `window` NHWC windows, VALID; per block over
+    row blocks whose heights the stride divides."""
+    if isinstance(x, Rows):
+        return x.map(lambda b: max_pool(b, window, stride))
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, window if stride is None else stride)
     return y.permute(0, 2, 3, 1)
 

@@ -14,6 +14,11 @@ never exists. Edge replication of the LR input reproduces up2's clamp, so
 replication padding at HR is exact; reflection padding differs on the
 outermost HR ring only, which _add_reflect_corrections repairs with the
 unfolded kernel. Everything in this file is plain PyTorch.
+
+Both ops take row blocks (ops/rows.Rows) too: each block's edge-padded LR
+input takes one halo row from each neighbour, and the reflection
+corrections and the up2 moments' edge weights fall on the image's true
+first and last rows only.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from dip_tpu_torch.ops.consts import device_const as _const
 from dip_tpu_torch.ops.hopper_up_conv import up2_conv3x3_hopper
+from dip_tpu_torch.ops.rows import Rows, allsum, gather_rows, halo_blocks
 
 
 @dataclasses.dataclass
@@ -155,29 +161,100 @@ def _add_reflect_corrections(z: torch.Tensor, x: torch.Tensor,
     return z
 
 
-def up2_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
+def effective_kernel(kernel: torch.Tensor, up_mode: str) -> torch.Tensor:
+    """The seam kernels' (3,3,C,4F) e of the HWIO (3,3,C,F) conv kernel:
+    E[p,q,d,g] = sum_{k,l} B[p,d,k] B[q,g,l] W[k,l], column (p*2+q)*F+f."""
+    c, f = kernel.shape[2:]
+    bj = _const(_bmat, up_mode, kernel.dtype, kernel.device)
+    e = torch.einsum("pdk,qel,klcf->decpqf", bj, bj, kernel)
+    return e.reshape(3, 3, c, 4 * f).contiguous()
+
+
+def up2_conv3x3(x: torch.Tensor | Rows, kernel: torch.Tensor,
                 up_mode: str = "bilinear",
                 pad_mode: str = "reflection",
-                carry: torch.Tensor | None = None) -> torch.Tensor:
+                carry: torch.Tensor | Rows | None = None) -> torch.Tensor | Rows:
     """conv_valid(pad1_{pad_mode}(upsample(x, 2, up_mode)), kernel), fused.
 
     x: (N, h, w, C), kernel: HWIO (3, 3, C, F) -> (N, 2h, 2w, F). No bias.
     `carry` (the output's shape, x's dtype) is added in the forward
     kernel's epilogue; the reflection corrections come after it.
     """
-    n, h, w, c = x.shape
-    kh, kw, c2, f = kernel.shape
-    if (kh, kw, c2) != (3, 3, c):
+    if kernel.shape[:3] != (3, 3, x.shape[3]):
         raise ValueError(f"kernel {tuple(kernel.shape)} does not fit x {tuple(x.shape)}")
-    bj = _const(_bmat, up_mode, kernel.dtype, kernel.device)
-    e = torch.einsum("pdk,qel,klcf->decpqf", bj, bj, kernel)
-    e = e.reshape(3, 3, c, 4 * f).contiguous()
+    if isinstance(x, Rows):
+        return _up2_conv3x3_rows(x, kernel, up_mode, pad_mode, carry)
+    e = effective_kernel(kernel, up_mode)
     xp = torch.cat([x[:, :1], x, x[:, -1:]], dim=1)
     xp = torch.cat([xp[:, :, :1], xp, xp[:, :, -1:]], dim=2)
     z = up2_conv3x3_hopper(xp, e, None if carry is None else carry.contiguous())
     if up_mode == "bilinear" and pad_mode in ("reflection", "reflect"):
         z = _add_reflect_corrections(z, x, kernel)
     return z
+
+
+def _p_band_halo(h: int) -> np.ndarray:
+    """(3, 2h, h+2): _p_band of one row block read from its rows with a
+    halo row on each side (image row start-1+j at column j), so no clamp:
+    the halo rows carry the image's edge replication at its true top and
+    bottom and the neighbours' rows elsewhere."""
+    out = np.zeros((3, 2 * h, h + 2), np.float32)
+    for e in range(3):
+        for i in range(h):
+            for p in range(2):
+                for d in range(3):
+                    out[e, 2 * i + p, i + d] += _B_BILINEAR[p][d, e]
+    return out
+
+
+def _block_corrections(z: torch.Tensor, xr: torch.Tensor, kernel: torch.Tensor,
+                       top: bool, bottom: bool) -> torch.Tensor:
+    """_add_reflect_corrections for one row block: xr is the block's LR
+    rows with a halo row on each side (edge-replicated at the image's true
+    top and bottom). The HR row corrections apply at the image's true first
+    and last rows only; the column corrections to every row of the block,
+    through its halo rows."""
+    n, hp, w, c = xr.shape
+    h = hp - 2
+    dt = z.dtype
+    if top or bottom:
+        tb = _const(_t_band, w, xr.dtype, xr.device)
+        for at, d_tb, kr, hr in ((top, xr[:, 2:3] - xr[:, 1:2], 0, 0),
+                                 (bottom, xr[:, h - 1:h] - xr[:, h:h + 1], 2, 2 * h - 1)):
+            if at:
+                corr = torch.einsum("eol,nrlc,recf->nrof", tb, 0.25 * d_tb, kernel[kr][None])
+                z[:, hr:hr + 1] += corr.to(dt)
+    pb = _const(_p_band_halo, h, xr.dtype, xr.device)
+    d_lr = 0.25 * torch.cat(
+        [xr[:, :, 1:2] - xr[:, :, 0:1], xr[:, :, w - 2:w - 1] - xr[:, :, w - 1:w]],
+        dim=2).permute(0, 2, 1, 3)                        # (N, 2, h+2, C)
+    k_lr = torch.stack([kernel[:, 0], kernel[:, 2]])      # (2, 3, C, F)
+    corr = torch.einsum("eol,nrlc,recf->nrof", pb, d_lr, k_lr).permute(0, 2, 1, 3)
+    z[:, :, 0:1] += corr[:, :, 0:1].to(dt)
+    z[:, :, 2 * w - 1:2 * w] += corr[:, :, 1:2].to(dt)
+    return z
+
+
+def _up2_conv3x3_rows(x: Rows, kernel: torch.Tensor, up_mode: str, pad_mode: str,
+                      carry: Rows | None) -> Rows:
+    """up2_conv3x3 over row blocks: K1-K4 run once a block, on its LR rows
+    with one halo row a side. Raises for a block of fewer than 2 LR rows
+    (the seam kernels' least h)."""
+    e = effective_kernel(kernel, up_mode)
+    last = len(x.blocks) - 1
+    out = []
+    for k, xr in enumerate(halo_blocks(x, 1, 1, "replicate")):
+        hk, dev = xr.shape[1] - 2, xr.device
+        if hk < 2:
+            raise ValueError(f"a row block of {hk} LR row at a fused seam: the seam kernels "
+                             f"need 2; use fewer shards or a taller image")
+        xp = torch.cat([xr[:, :, :1], xr, xr[:, :, -1:]], dim=2)
+        z = up2_conv3x3_hopper(xp, e.to(dev),
+                               None if carry is None else carry.blocks[k].contiguous())
+        if up_mode == "bilinear" and pad_mode in ("reflection", "reflect"):
+            z = _block_corrections(z, xr, kernel.to(dev), k == 0, k == last)
+        out.append(z)
+    return Rows(out)
 
 
 def _gram_diag(L: int) -> np.ndarray:
@@ -187,7 +264,7 @@ def _gram_diag(L: int) -> np.ndarray:
     return g
 
 
-def up2_moments(x: torch.Tensor, up_mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+def up2_moments(x: torch.Tensor | Rows, up_mode: str) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact per-channel (mean, var) of upsample(x, 2, up_mode) over
     (N, H, W), computed on the LR tensor with f32 sums and returned in x's
     dtype. bilinear: the mean is mean(x); the second moment is the banded
@@ -198,6 +275,8 @@ def up2_moments(x: torch.Tensor, up_mode: str) -> tuple[torch.Tensor, torch.Tens
     variance is a thousandth of its squared mean came out negative and
     BN's rsqrt made the fit NaN (flash/no-flash at lr 0.1 in bf16)."""
     f32 = torch.float32
+    if isinstance(x, Rows):
+        return _up2_moments_rows(x, up_mode)
     if up_mode == "nearest":
         xf = x.to(f32)
         return (xf.mean((0, 1, 2)).to(x.dtype),
@@ -217,5 +296,40 @@ def up2_moments(x: torch.Tensor, up_mode: str) -> tuple[torch.Tensor, torch.Tens
     sd = 0.28125 * ((xf[:, :-1, :-1] * xf[:, 1:, 1:]).sum((0, 1, 2))
                     + (xf[:, 1:, :-1] * xf[:, :-1, 1:]).sum((0, 1, 2)))
     second = (s0 + sh + sw + sd) / (n * 4 * h * w)
+    var = torch.clamp(second - mean * mean, min=0.0)
+    return mean.to(x.dtype), var.to(x.dtype)
+
+
+def _up2_moments_rows(x: Rows, up_mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """up2_moments over row blocks: each block's f32 sums, with one halo
+    row below it for the bilinear form's vertical and diagonal neighbour
+    products, added on block 0's device (the all-reduce)."""
+    f32 = torch.float32
+    n, h, w, c = x.shape
+    dev0 = x.blocks[0].device
+    xfs = [b.to(f32) for b in x.blocks]
+    mean = allsum([xf.sum((0, 1, 2)) for xf in xfs], dev0) / (n * h * w)
+    if up_mode == "nearest":
+        var = allsum([((xf - mean.to(xf.device)) ** 2).sum((0, 1, 2)) for xf in xfs],
+                     dev0) / (n * h * w)
+        return mean.to(x.dtype), var.to(x.dtype)
+    if up_mode != "bilinear":
+        raise ValueError(f"unsupported upsample mode for moments: {up_mode!r}")
+    if h < 2 or w < 2:
+        raise ValueError(f"up2_moments needs h, w >= 2, got {h}x{w}")
+    terms = []
+    for k, xf in enumerate(xfs):
+        dev, start, hk = xf.device, x.starts[k], xf.shape[1]
+        g0h = _const(_gram_diag, h, f32, dev)[start:start + hk]
+        g0w = _const(_gram_diag, w, f32, dev)
+        # this block's rows and the next block's first (none below the image)
+        xb = gather_rows(x, k, start, min(start + hk + 1, h), "constant").to(f32)
+        s0 = torch.einsum("nhwc,h,w->c", xf * xf, g0h, g0w)
+        sh = 0.75 * torch.einsum("nhwc,w->c", xb[:, :-1] * xb[:, 1:], g0w)
+        sw = 0.75 * torch.einsum("nhwc,h->c", xf[:, :, :-1] * xf[:, :, 1:], g0h)
+        sd = 0.28125 * ((xb[:, :-1, :-1] * xb[:, 1:, 1:]).sum((0, 1, 2))
+                        + (xb[:, 1:, :-1] * xb[:, :-1, 1:]).sum((0, 1, 2)))
+        terms.append(s0 + sh + sw + sd)
+    second = allsum(terms, dev0) / (n * 4 * h * w)
     var = torch.clamp(second - mean * mean, min=0.0)
     return mean.to(x.dtype), var.to(x.dtype)

@@ -14,20 +14,23 @@ own stream, as fit/engine.py does for one fit.
 
 What stays per fit is what Engine does for one: the weights (fit i's are
 `Engine.init_state(seeds[i], ...)`'s), the optimizer's arithmetic (Adam
-and SGD are elementwise over the stacked leaves), the input jitter (one
-generator per fit, seeded seeds[i] + 1) and the weight jitter (seeds[i] +
-2, std(w) taken per fit), the EMA, backtracking's drop and restore, and
-the metrics.
+and SGD are elementwise over the stacked leaves; L-BFGS is
+fit/lbfgs.BatchZoomLBFGS, each fit's memory, direction and line search
+its own), the input jitter (one generator per fit, seeded seeds[i] + 1)
+and the weight jitter (seeds[i] + 2, std(w) taken per fit), the EMA,
+backtracking's drop and restore, and the metrics. With conv_wgrad on, the
+weight gradients of the stride-1 3x3 and 1x1 convs come from K5/K6 with
+their fit axis (ops/hopper_wgrad.py's vmap rules).
+
+L-BFGS runs as Engine runs it: at the fits' start `lbfgs_warmup` graphed
+Adam steps, then eager L-BFGS steps, each a lockstep round of the B line
+searches a trial, one host read a round. (The JAX BatchEngine gives its
+L-BFGS fits no warm-up; fit i here is Engine with seed i, which has one.)
 
 With a `mesh`, the batch is cut into one contiguous sub-batch per device,
 each with its own model copy, graph and stream; `run` enqueues every
 device's chunk before it waits on any (as shard_map runs its shards), and
 there is no collective. The batch must divide by the mesh size.
-
-Refused, with the reason: optimizer 'lbfgs' (the port's line search reads
-each trial on the host, and a summed loss would couple the fits' line
-searches), and any model with conv_wgrad other than 'off' (the conv
-weight-gradient kernels K5/K6 have no vmap rule yet).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 from torch.func import functional_call, vmap
 
 from dip_tpu_torch.fit.engine import Engine, FitConfig, schedule_std
+from dip_tpu_torch.fit.lbfgs import BatchZoomLBFGS
 from dip_tpu_torch.parallel.mesh import Mesh, shard_batch
 
 
@@ -77,21 +81,6 @@ class BatchState:
     def leaf(self, name: str) -> torch.Tensor:
         """Trainable leaf `name` of every fit, (B, ...), on the CPU."""
         return torch.cat([s.params[name].detach().cpu() for s in self.shards])
-
-
-def check_batchable(model: torch.nn.Module, cfg: FitConfig) -> None:
-    """Raise for what BatchEngine cannot batch: L-BFGS, and conv_wgrad."""
-    if cfg.optimizer == "lbfgs":
-        raise ValueError("BatchEngine does not run optimizer='lbfgs': the port's line search "
-                         "reads each trial's Wolfe test on the host, and one summed loss "
-                         "would couple the fits' line searches; fit each image with Engine "
-                         "or FitQueue")
-    for m in model.modules():
-        mode = getattr(m, "conv_wgrad", "off")
-        if mode != "off":
-            raise ValueError(f"BatchEngine needs conv_wgrad='off' ({type(m).__name__} has "
-                             f"{mode!r}): the conv weight-gradient kernels (K5, K6) have no "
-                             f"vmap rule")
 
 
 class _DeviceBatch(Engine):
@@ -144,19 +133,29 @@ class _DeviceBatch(Engine):
             torch.randn(shape, generator=g, device=self.device, dtype=state.z.dtype)
             for g in state.generators])
 
-    def net_params(self, state: BatchFitState, train: bool) -> dict[str, torch.Tensor]:
+    def _optimizer(self, params: dict[str, torch.Tensor]) -> torch.optim.Optimizer:
+        if self.cfg.optimizer == "lbfgs":
+            return BatchZoomLBFGS(params.values())
+        return super()._optimizer(params)
+
+    def _weight_noise(self, state: BatchFitState) -> dict[str, torch.Tensor]:
+        """Each fit's N(0,1) of each conv weight's shape, by name, from the
+        fit's own weight-jitter generator, stacked (b, ...)."""
+        return {k: torch.stack([torch.randn(w.shape[1:], generator=g, device=w.device,
+                                            dtype=w.dtype) for g in state.param_generators])
+                for k, w in ((k, state.params[k]) for k in self.net_keys) if w.dim() == 5}
+
+    def net_params(self, state: BatchFitState, train: bool,
+                   noise: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
         """The net's stacked parameters as the forward sees them: with
-        param_noise and `train`, each fit's conv weight plus N(0,1) from its
-        own generator times that fit's std(w) / 50 (ddof 0)."""
+        param_noise and `train`, each fit's conv weight plus its N(0,1)
+        (from `noise`, _weight_noise's draws, else a fresh draw) times that
+        fit's std(w) / 50 (ddof 0)."""
         net = {k: state.params[k] for k in self.net_keys}
         if not (train and self.cfg.param_noise):
             return net
-        for k in self.net_keys:
+        for k, eps in (self._weight_noise(state) if noise is None else noise).items():
             w = net[k]
-            if w.dim() != 5:  # the fits' 4-D conv weights
-                continue
-            eps = torch.stack([torch.randn(w.shape[1:], generator=g, device=w.device,
-                                           dtype=w.dtype) for g in state.param_generators])
             std = torch.std(w, dim=(1, 2, 3, 4), correction=0, keepdim=True)
             net[k] = w + eps * (std / 50.0)
         return net
@@ -169,20 +168,35 @@ class _DeviceBatch(Engine):
         cast = {k: v.to(torch.bfloat16) for k, v in net.items()}
         return fits(cast, z.to(torch.bfloat16)).to(torch.float32)
 
+    def _update(self, state: BatchFitState, aux: Any) -> tuple[torch.Tensor, torch.Tensor]:
+        """Engine._update for the b fits: the jitter drawn once, the closure
+        a vmapped forward and the per-fit losses, whose sum's one backward
+        gives each fit its own gradient; returns the (b,) losses and the
+        outputs at the params before the update."""
+        jitter = self._jitter(state)
+        noise = self._weight_noise(state) if self.cfg.param_noise else None
+        first: list[torch.Tensor] = []
+
+        def closure():
+            z = self._base_input(state)
+            out = self._forward(self.net_params(state, True, noise),
+                                z if jitter is None else z + jitter)
+            losses = vmap(self.loss_fn)(state.params, out, aux)
+            state.opt.zero_grad(set_to_none=True)
+            losses.sum().backward()
+            if not first:
+                first.append(out.detach().clone() if self.cfg.opt_input else out.detach())
+            return losses.detach()
+
+        return state.opt.step(closure), first[0]
+
     def _advance(self, state: BatchFitState, aux: Any) -> dict:
         """One training step of every fit, in place; returns the metrics,
         (b,) tensors. This is the body the CUDA graph captures."""
         cfg = self.cfg
         if cfg.backtrack:
             pre = {k: p.detach().clone() for k, p in state.params.items()}
-        jitter = self._jitter(state)
-        z = self._base_input(state)
-        out = self._forward(self.net_params(state, True), z if jitter is None else z + jitter)
-        losses = vmap(self.loss_fn)(state.params, out, aux)
-        state.opt.zero_grad(set_to_none=True)
-        losses.sum().backward()
-        out = out.detach().clone() if cfg.opt_input else out.detach()
-        state.opt.step()
+        losses, out = self._update(state, aux)
 
         if state.ema_out is None:
             state.ema_out = torch.zeros_like(out)
@@ -192,7 +206,10 @@ class _DeviceBatch(Engine):
             w = cfg.exp_weight
             ema = torch.where(state.device_step == 0, out, state.ema_out * w + out * (1 - w))
 
-        metrics = {"loss": losses.detach()}
+        metrics = {"loss": losses}
+        if cfg.optimizer == "lbfgs":
+            metrics["evals"] = torch.tensor(state.opt.last_evals, dtype=torch.float32,
+                                            device=self.device)
         if self.metrics_fn is not None:
             metrics.update(vmap(self.metrics_fn)(out, ema, aux))
 
@@ -228,7 +245,7 @@ class BatchEngine:
             trained).
         loss_fn: (params, out, aux) -> 0-d loss, for ONE fit (vmapped over
             the fits: params, out and aux are one fit's).
-        cfg: FitConfig (not 'lbfgs').
+        cfg: FitConfig.
         metrics_fn: optional (out, ema_out, aux) -> dict of 0-d tensors, for
             one fit; with backtracking it must give 'psnr_track'.
         mesh: a parallel.mesh.Mesh; the batch is cut into one sub-batch per
@@ -242,7 +259,6 @@ class BatchEngine:
             raise ValueError("give BatchEngine a mesh or a device, not both")
         if "input" in cfg.opt_over.split(",") and not cfg.opt_input:
             cfg = dataclasses.replace(cfg, opt_input=True)
-        check_batchable(model, cfg)
         self.cfg = cfg
         self.mesh = mesh
         devices = mesh.devices if mesh is not None else (torch.device(device),)
@@ -256,7 +272,6 @@ class BatchEngine:
         jitter streams from seeds[i] + 1 and + 2. zs: (B, 1, H, W, C).
         `extra_params`: further trainable leaves by name, each (B, ...),
         one initial value per fit."""
-        check_batchable(self.parts[0].model, self.cfg)
         seeds = [int(s) for s in seeds]
         if zs.shape[0] != len(seeds):
             raise ValueError(f"{len(seeds)} seeds for {zs.shape[0]} inputs")
@@ -296,8 +311,9 @@ class BatchEngine:
         end only with `callback` (given each metric's (n, B) numpy array).
         Returns (state, history: each metric's (num_iter, B) numpy array)."""
         parts_aux = self._split(auxs)
-        for p, s, a in zip(self.parts, state.shards, parts_aux):
-            p.capture(s, a)  # a capture waits for its device: all before any chunk
+        if self.cfg.optimizer != "lbfgs":  # L-BFGS steps are eager (Engine.run_chunk)
+            for p, s, a in zip(self.parts, state.shards, parts_aux):
+                p.capture(s, a)  # a capture waits for its device: all before any chunk
         remaining, it = self.cfg.num_iter, 0
         chunks: list[list[dict]] = []
         while remaining > 0:

@@ -102,6 +102,35 @@ def test_matches_jax_batch_engine():
     np.testing.assert_array_equal(hist["backtracked"], np.asarray(jhist["backtracked"]))
 
 
+def test_conv_wgrad_matches_jax_batch_engine():
+    """test_matches_jax_batch_engine with the weight-gradient kernels on
+    both sides: the JAX package's own switch (dispatch pallas_wgrad='all',
+    its Pallas kernels in interpret mode on the CPU, batched by vmap) and
+    the port's conv_wgrad='all' (K5/K6's fit axis through ConvFits; their
+    plain versions here); 3 steps, seam off, jitter off, per-fit loss at
+    rtol 1e-3."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    zs, tgt = _data()
+    cfg_kw = dict(num_iter=3, lr=1e-3, log_every=3)
+    jbe = jbatch.BatchEngine(FlaxSkip(**SMALL), lambda p, out, aux: jmse(out, aux),
+                             jeng.FitConfig(**cfg_kw))
+    with dispatch.override(up_conv="off", pallas_wgrad="all"), \
+            pltpu.force_tpu_interpret_mode():
+        jstate = jbe.init_state(jax.random.split(jax.random.key(0), B), jnp.asarray(zs))
+        init = jax.tree_util.tree_map(np.asarray, jstate.params)
+        _, jhist = jbe.run(jstate, jnp.asarray(tgt))
+    model = Skip(num_input_channels=DEPTH, up_conv=False, conv_wgrad="all", **SMALL)
+    be = BatchEngine(model, lambda p, out, aux: mse(out, aux), teng.FitConfig(**cfg_kw),
+                     device="cpu")
+    state = be.init_state(SEEDS, torch.from_numpy(zs))
+    with torch.no_grad():
+        for k, v in interop.flax_batch_to_torch(init, model).items():
+            state.shards[0].params[k].copy_(v)
+    _, hist = be.run(state, torch.from_numpy(tgt))
+    np.testing.assert_allclose(hist["loss"], np.asarray(jhist["loss"]), rtol=1e-3)
+
+
 def _engine_fit(cfg, i, zs, **skip):
     eng = teng.Engine(Skip(num_input_channels=DEPTH, **dict(SMALL, **skip)), _loss, cfg,
                       _metrics, device="cpu")
@@ -118,10 +147,25 @@ def test_fit_i_is_engine_with_seed_i(optimizer, up_conv, grad_tol):
     alone, the first step's metrics at rtol 1e-5 and gradients within
     `grad_tol` of the fit's largest, then 5 steps' losses and metrics at
     rtol 1e-3 with the seam off, 1e-2 with it on."""
+    _fit_i_against_engine(optimizer, up_conv, grad_tol)
+
+
+@pytest.mark.parametrize("optimizer,up_conv,grad_tol", [
+    ("adam", True, 5e-3), ("sgd", True, 5e-3), ("adam", False, 2e-5)])
+def test_conv_wgrad_fit_i_is_engine_with_seed_i(optimizer, up_conv, grad_tol):
+    """test_fit_i_is_engine_with_seed_i with conv_wgrad='all' on both
+    sides, at its limits: under vmap every stride-1 3x3 and 1x1 conv runs
+    hopper_wgrad.ConvFits (grouped forward and data gradient, K5/K6's
+    weight gradient per fit; their plain versions here), Engine's fit the
+    single-fit Functions."""
+    _fit_i_against_engine(optimizer, up_conv, grad_tol, conv_wgrad="all")
+
+
+def _fit_i_against_engine(optimizer, up_conv, grad_tol, **skip):
     zs, tgt = _data()
     cfg = teng.FitConfig(num_iter=5, lr=0.01, optimizer=optimizer, reg_noise_std=0.05,
                          param_noise=True, exp_weight=0.99, backtrack=True, log_every=5)
-    be = _batch(cfg, up_conv=up_conv)
+    be = _batch(cfg, up_conv=up_conv, **skip)
     state = be.init_state(SEEDS, torch.from_numpy(zs))
     aux = {"t": torch.from_numpy(tgt)}
     first = be.step(state, aux)
@@ -129,7 +173,7 @@ def test_fit_i_is_engine_with_seed_i(optimizer, up_conv, grad_tol):
     grads = {k: p.grad.clone() for k, p in shard.params.items()}
     state, hist = be.run(state, aux)
     for i in range(B):
-        eng, s = _engine_fit(cfg, i, zs, up_conv=up_conv)
+        eng, s = _engine_fit(cfg, i, zs, up_conv=up_conv, **skip)
         _, m = eng.step(s, {"t": torch.from_numpy(tgt[i])})
         g_max = max(p.grad.abs().max().item() for p in s.params.values())
         worst = max((grads[k][i] - p.grad).abs().max().item() for k, p in s.params.items())
@@ -190,16 +234,14 @@ def test_extra_params_per_fit():
 
 
 def test_refusals():
-    """L-BFGS and the conv weight-gradient kernels are refused, with the
-    reason, at construction and at init_state."""
-    with pytest.raises(ValueError, match="lbfgs"):
-        _batch(teng.FitConfig(optimizer="lbfgs"))
-    with pytest.raises(ValueError, match="conv_wgrad"):
-        _batch(teng.FitConfig(), conv_wgrad="3x3")
-    be = _batch(teng.FitConfig())
-    be.parts[0].model.conv_wgrad = "all"
-    with pytest.raises(ValueError, match="conv_wgrad"):
-        be.init_state(SEEDS, torch.from_numpy(_data()[0]))
+    """What BatchEngine refuses, with the reason: a mesh and a device both
+    (or neither), and a batch that does not divide by the mesh. L-BFGS and
+    the conv weight-gradient kernels, refused before K5/K6 had a fit axis
+    and the line searches a lockstep form, are accepted now, at
+    construction and at init_state."""
+    for cfg, skip in ((teng.FitConfig(optimizer="lbfgs"), {}),
+                      (teng.FitConfig(), {"conv_wgrad": "3x3"})):
+        _batch(cfg, **skip).init_state(SEEDS, torch.from_numpy(_data()[0]))
     with pytest.raises(ValueError, match="mesh or a device"):
         BatchEngine(Skip(), _loss, teng.FitConfig())
     with pytest.raises(ValueError, match="divide"):

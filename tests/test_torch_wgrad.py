@@ -513,3 +513,70 @@ def test_bf16_wgrad3x3_call_is_unchanged(fake_lib):
     assert name == "dip_wgrad3x3_mma"
     assert args[1] == g.data_ptr() and args[0] != x.data_ptr()
     assert args[4:] == (1, 16, 24, 16, 32, plan.splits, plan.tiles_per_split, 1, None)
+
+
+def _vmapped_backward(ks, weight_batched, dtype, fits=3, n=2):
+    """One backward of a vmapped Conv3x3S1 (halo 1) or Conv1x1 over `fits`
+    fits of n images each; returns the physical x."""
+    from torch.func import vmap
+
+    x = torch.from_numpy(_normal((fits, n, 8, 16, 16), 34)).to(dtype).requires_grad_()
+    wshape = (16, 16, ks, ks)
+    w = torch.from_numpy(_normal((fits, *wshape) if weight_batched else wshape, 35)).to(dtype)
+    w.requires_grad_()
+    fn = (lambda xi, wi: W.conv3x3_s1(xi, wi, 1)) if ks == 3 else W.conv1x1
+    y = vmap(fn, in_dims=(0, 0 if weight_batched else None))(x, w)
+    torch.autograd.grad(y.float().sum(), (x, w))
+    return x
+
+
+@pytest.mark.parametrize("ks", [3, 1])
+def test_vmap_bf16_batched_weight_runs_one_fit_axis_launch(fake_lib, ks):
+    """Under vmap with each fit's own weight (BatchEngine), the bf16 weight
+    gradient is ONE launch of the fit-axis entry for all the fits (fits =
+    B, N = B * n), sized by one fit's plan; one launch counted."""
+    from dip_tpu_torch.ops import hopper_up_conv as H
+
+    W.reset_launches()
+    _vmapped_backward(ks, True, torch.bfloat16)
+    [(name, args)] = fake_lib.calls
+    plan = H.wgrad_mma_plan(2, 8, 16, 16, 16, ks * ks)
+    assert name == ("dip_wgrad3x3_mma_fits" if ks == 3 else "dip_wgrad1x1_mma_fits")
+    assert args[4:] == (3, 6, 8, 16, 16, 16, plan.splits, plan.tiles_per_split, 1, None)
+    assert W.LAUNCHES == {"wgrad3x3_s1": int(ks == 3), "wgrad1x1": int(ks == 1)}
+
+
+@pytest.mark.parametrize("ks", [3, 1])
+def test_vmap_f32_batched_weight_launches_once_a_fit(fake_lib, ks):
+    """In f32 (no fit axis in csrc/wgrad.cu) the wrapper launches the f32
+    kernel once a fit on that fit's n images as they lie: B calls, each
+    with N = n and the fit's own pointer, B launches counted."""
+    W.reset_launches()
+    _vmapped_backward(ks, True, torch.float32)
+    assert [name for name, _ in fake_lib.calls] == ["dip_wgrad_f32"] * 3
+    starts = [args[0] for _, args in fake_lib.calls]
+    assert len(set(starts)) == 3 and all(args[4] == 2 for _, args in fake_lib.calls)
+    assert W.LAUNCHES == {"wgrad3x3_s1": 3 * (ks == 3), "wgrad1x1": 3 * (ks == 1)}
+
+
+def test_vmap_shared_weight_folds_the_fits_into_n(fake_lib):
+    """Under vmap with one weight for every fit, the fits fold into N: the
+    single-fit bf16 entry, once, over N = B * n images."""
+    _vmapped_backward(3, False, torch.bfloat16)
+    [(name, args)] = fake_lib.calls
+    assert name == "dip_wgrad3x3_mma" and args[4] == 6
+
+
+@pytest.mark.parametrize("ks", [3, 1])
+def test_fit_axis_plain_is_per_fit(ks):
+    """The plain versions with `fits`: fit b's dW from its own images only,
+    equal to the plain version on its slice."""
+    x = torch.from_numpy(_normal((4, 6, 7, 5), 36))
+    g = torch.from_numpy(_normal((4, 6, 7, 3), 37))
+    got = W.wgrad3x3_s1(x, g, 1, fits=2) if ks == 3 else W.wgrad1x1(x, g, fits=2)
+    for b in range(2):
+        one = (W.wgrad3x3_s1(x[2 * b:2 * b + 2], g[2 * b:2 * b + 2], 1) if ks == 3
+               else W.wgrad1x1(x[2 * b:2 * b + 2], g[2 * b:2 * b + 2]))
+        assert torch.equal(got[b], one)
+    with pytest.raises(ValueError, match="fits"):
+        W.wgrad1x1(x, g, fits=3)
