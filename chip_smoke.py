@@ -33,9 +33,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
      launched twice and bitwise equal, with times beside their plain
      versions' and cuDNN's (bf16 with the time of its operands' layout
      copies, which its time includes); and their fit axis (BatchEngine's
-     conv_wgrad) at 8 fits of the top 'kate' shapes, each fit bitwise its
-     single-fit launch, timed beside 8 x one fit, the plain version and
-     one grouped cuDNN weight gradient;
+     conv_wgrad) at 8 fits of the top 'kate' shapes, one launch for the 8
+     fits in bf16 and in f32, each fit bitwise its single-fit launch, timed
+     beside 8 x one fit, the plain version and one grouped cuDNN weight
+     gradient; the downsample kernel's row form (a row block with its halo
+     rows, row pad 0, column pad p) against its plain version at the
+     128-channel post-down (1,512,512,128), a 4-block Skip's top block and
+     lanczos3, timed at the first;
   4. small-input reference: a 2-scale 128-channel skip net, forward and
      gradients on the card against the same net on the CPU: under an MSE
      at full resolution, and under the SR loss (x4 downsample, MSE at LR)
@@ -86,28 +90,36 @@ Phases, each of which raises on failure (exit code 1, no result line):
      fits (inpainting, 512^2, 128-channel skips) with conv_wgrad='all', in
      bf16 and f32, one batched step: each K5/K6 fit-axis call's every fit
      bitwise its single-fit launch, the launches exact (K5/K6 one fit's in
-     bf16, 8 x in f32); and 8 flagship fits at 64^2 in f32 with optimizer
+     both dtypes); and 8 flagship fits at 64^2 in f32 with optimizer
      'lbfgs' (10 graphed Adam warm-up steps, 10 eager L-BFGS steps, the
      line searches in lockstep): launches exact, losses falling, and each
      L-BFGS step held at the batched fit's state against its own Engine
      (loss, evaluations and, where the evaluations agree, the step itself
      at stated limits);
- 10. [spatial] SpatialEngine: the flagship Skip 5x128 at full width, its
-     activations cut into row blocks over a mesh that repeats the one
-     card, bf16 at 1024^2 over 4 blocks and f32 at 512^2 over 2: under
+ 10. [spatial] SpatialEngine at full width, its activations cut into row
+     blocks over a mesh that repeats the one card: the flagship Skip 5x128
+     in bf16 at 1024^2 over 4 blocks and in f32 at 512^2 over 2, the
+     'library' UNet (bf16) and ResNet (f32) at 512^2 with conv_wgrad='all',
+     get_net's TextureNet on a 512^2 denoising fit (bf16), dcgan() at its
+     defaults from 62^2 to 256^2 (f32), each over 2 blocks, and the
+     flagship with the lanczos2 post-down at 512^2 bf16 over 4: under
      deterministic cuDNN one step against Engine's from the same seed at
-     [batch]'s limits and 10 eager steps against run() bit for bit; 20
-     graphed steps (loss falling, render finite, K1-K4 each blocks x 5
-     launches a step), it/s and peak memory beside the unsharded fit's;
-     3 sharded steps with no host sync;
+     [batch]'s f32 limits (and a bf16 fit's loss at the bf16 limit, its
+     gradients against Engine's f32 step within 1.5x Engine's own bf16
+     step's error there) and 10 eager
+     steps against run() bit for bit, in the fit's dtype; 20
+     graphed steps (loss falling, render finite, every kernel blocks x one
+     fit's launches: K1-K4 at the seams, K5/K6 at each routed conv, K7 at
+     each Lanczos post-down), it/s and peak memory beside the unsharded
+     fit's; 3 sharded steps with no host sync; each fit's wall;
  11. [fleet] eval_sr_dataset_sharded over make_mesh() on three synthetic
      PNGs of two sizes, x4, under deterministic cuDNN: names, finite
      scores, one BatchEngine program per shape group, scores within 0.1 dB
      of eval_sr_dataset's with the same seeds after one step and within
      3 dB (its own run-to-run spread) after 40;
  12. [flash] flash/no-flash at 512^2 in bf16 (nearest up at the two top
-     seams, bilinear below): loss falling, psnr_track rising, launch
-     counts;
+     seams, bilinear below) under deterministic cuDNN from fixed seeds:
+     loss falling, psnr_track rising, launch counts;
  13. [ckpt] the flagship in bf16 under deterministic cuDNN: 10 steps,
      saved, restored into a fresh state, 10 more, against 20
      uninterrupted, bit for bit;
@@ -145,7 +157,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      f32 and in bf16: every bf16 best within 0.75 dB of the f32 best (the
      PSNR floors, set on the reference's photos, printed beside the
      readings and not held here);
- 21. [train] `tools.train_backbone --quick`: AlexNet trained 400 steps at
+ 21. [train] `tools.train_backbone --quick` under deterministic cuDNN from
+     its fixed seeds: AlexNet trained 400 steps at
      batch 16 to a held-out accuracy of at least 0.9, its exported .pth
      reloaded through pretrained/convert.py bit for bit the trained
      state, and falling losses of feature inversion (fc6) and activation
@@ -159,7 +172,9 @@ run's shapes on an H100: bytes at 3.35 TB/s against operations at 989
 TFLOP/s bf16 or 67 TFLOP/s f32 FMA; the weight gradients' rows give their
 bf16 figures as the row's own, their f32 figures under "f32" and each
 dtype's source under "sources"; the downsample's row gives SR x4 as its
-own and x4, x8 and 128 channels under "shapes"), and {"ok": true,
+own and x4, x8 and 128 channels under "shapes", its row form's row the
+(1,512,512,128) block and the launches of [spatial]'s Lanczos Skip), and
+{"ok": true,
 "device": {...}}.
 Without a CUDA device it exits 1 at once.
 """
@@ -254,14 +269,29 @@ BATCH_LBFGS_STEP_TOL = BATCH_GRAD_TOL[None]
 # top 'kate' shapes, (kernel, halo, one fit's x and g (H, W, C))
 WGRAD_FIT_CASES = [("wgrad3x3_s1", 0, (514, 514, 128), (512, 512, 128)),
                    ("wgrad1x1", 0, (512, 512, 128), (512, 512, 128))]
-# [spatial]: (compute dtype, image size, row blocks): the flagship over a
-# mesh that repeats the one card; SPATIAL_STEPS graphed steps. One step of
-# the sharded fit is held to Engine's from the same seed at [batch]'s
-# limits (BATCH_LOSS_TOL, BATCH_GRAD_TOL): the blocks sum BN's moments in
-# another order, and the seam rounds its operands to bf16, so a last-bit
-# difference moves an element by 2^-8 of itself (on the CPU with the seam
-# on, f32: 9.7e-6 loss, 2.4e-3 gradients; bf16: 1.3e-4, 4.2e-2).
-SPATIAL_FITS = [("bfloat16", 1024, 4), (None, 512, 2)]
+# [spatial]: (net, compute dtype, image size, row blocks), each over a mesh
+# that repeats the one card, SPATIAL_STEPS graphed steps: the flagship
+# Skip, the 'library' UNet and ResNet of [zoo] (conv_wgrad='all'), get_net's
+# TextureNet on the flagship's denoising fit, dcgan() at its defaults
+# (input 62^2, output 256^2) on a 256^2 denoising fit, and the flagship
+# with the lanczos2 post-down. One step of the sharded fit is held to
+# Engine's from the same seed at [batch]'s f32 limits (BATCH_LOSS_TOL,
+# BATCH_GRAD_TOL), and in a bf16 fit its loss at the bf16 limit: the blocks
+# sum the norms' moments in another order, and the seam rounds its operands
+# to bf16, so a last-bit difference moves an element by 2^-8 of itself (on
+# the CPU with the seam on, f32: 9.7e-6 loss, 2.4e-3 gradients; bf16:
+# 1.3e-4, 4.2e-2). A bf16 fit's gradients are held against Engine's f32
+# step: within SPATIAL_BF16_FLOOR times Engine's own bf16 step's error there
+# (the geometry's bf16 rounding floor). Two orders of bf16 sums can differ
+# by as much as bf16 differs from f32 (on an H100, the lanczos2 Skip at
+# 512^2 over 4 blocks in bf16: 1.13e-1 against Engine's bf16 step, whose
+# floor read 1.67e-1), so [batch]'s bf16 limit of 1e-1 is below the noise
+# there, while a missing halo or a block's wrong rows read O(1).
+SPATIAL_BF16_FLOOR = 1.5
+SPATIAL_FITS = [("flagship", "bfloat16", 1024, 4), ("flagship", None, 512, 2),
+                ("library UNet", "bfloat16", 512, 2), ("library ResNet", None, 512, 2),
+                ("texture_nets", "bfloat16", 512, 2), ("dcgan", None, 256, 2),
+                ("flagship lanczos2", "bfloat16", 512, 4)]
 SPATIAL_STEPS = 20
 # [fleet]: HR sizes (multiples of 32) by name, two shapes; x4. Under
 # deterministic cuDNN the fleet's scores after one step within FLEET_DB_1
@@ -363,6 +393,12 @@ DOWN_CASES = [
 ]
 # timed with their bounds: SR x4 (the row's own figures), SR x8, 128 channels
 DOWN_TIMED = [DOWN_CASES[0], DOWN_CASES[1], DOWN_CASES[-1]]
+# the downsample's row form (a row block that brings its halo rows, at row
+# pad 0 and column pad p = (K - f) / 2), x2 phase 0.5: (1,512,512,128) (the
+# row form's own figures), a 4-block 512^2 Skip's top block (128 rows and 3
+# halo rows a side), and lanczos3 (5 a side)
+DOWN_ROWS = [((1, 512, 512, 128), "lanczos2"), ((1, 134, 512, 128), "lanczos2"),
+             ((1, 74, 256, 128), "lanczos3")]
 
 
 def log(msg: str) -> None:
@@ -773,6 +809,52 @@ def phase_downsample_parity(dev: torch.device) -> dict:
     return stats
 
 
+def phase_downsample_rows_parity(dev: torch.device) -> dict:
+    """The downsample kernel's row form (row pad 0, column pad p) against
+    downsample_plain with the same pads, at DOWN_ROWS and DOWN_TOL; the
+    first case timed (kernel and plain version from a CUDA graph of
+    launches) with its bound, as the kernels line's row-form figures."""
+    from dip_tpu_torch.ops import hopper_resample as HR
+    from dip_tpu_torch.ops import resample as R
+
+    stats = {"max_abs_err": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for shape, ktype in DOWN_ROWS:
+        x = torch.rand(shape, generator=gen, device=dev)
+        spec = R._spec(2, ktype, 0.5, None, None, None)
+        p = R._geometry(shape, spec, True)[0]
+        h_out, w_out = R._out_size(shape, spec, (0, p))
+        taps = R.device_const(R._profile, spec, torch.float32, dev)
+
+        def kern():
+            return HR.downsample_fused(x, taps, 2, (0, p), h_out, w_out)
+
+        def plain():
+            return R.downsample_plain(x, 2, ktype, 0.5, pads=(0, p))
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.shape != (shape[0], h_out, w_out, shape[3]):
+            raise RuntimeError(f"downsample rows {tuple(got.shape)} vs {tuple(want.shape)}")
+        rel, abs_err = rel_err(got, want)
+        stats["max_abs_err"] = max(stats["max_abs_err"], abs_err)
+        line = (f"[parity] downsample row form {tuple(shape)} x2 {ktype} pads (0, {p}) -> "
+                f"{tuple(got.shape)}: rel {rel:.2e} abs {abs_err:.2e}")
+        if (shape, ktype) == DOWN_ROWS[0]:
+            ms, plain_ms = graph_ms(kern, 100), graph_ms(plain, 20)
+            bound_ms, by = down_bound(shape, taps.shape[0], h_out, w_out)
+            stats.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                         bound_by=by, shape=list(shape))
+            line += (f" | kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} "
+                     f"ms ({by})")
+        log(line)
+        if rel > DOWN_TOL:
+            raise RuntimeError(f"the downsample's row form disagrees with its plain version: "
+                               f"rel {rel:.3e} > {DOWN_TOL}")
+        del x, got, want
+    return stats
+
+
 def _layout(shape, layout: str, gen, dev, dtype) -> torch.Tensor:
     """A random NHWC tensor, contiguous, or channel-planar (the NHWC view
     of an NCHW-contiguous tensor)."""
@@ -964,13 +1046,13 @@ def _hold_wgrad(W, name: str, halo: int, x: torch.Tensor, g: torch.Tensor,
 
 def phase_wgrad_fit_axis_parity(dev: torch.device) -> dict:
     """K5 and K6 with the fit axis (BatchEngine's conv_wgrad launches) at
-    WGRAD_FIT_CASES, BATCH_FITS fits, in bf16 and f32: each fit's dW
-    against its plain version at WGRAD_TOL and bitwise the single-fit
-    launch on that fit's own slice; deterministic. Timed: the fits' launch
-    (bf16: one launch; f32: one a fit) against BATCH_FITS x the single-fit
-    launch, the plain version per fit, and one grouped cuDNN weight
-    gradient (groups = BATCH_FITS). Returns each kernel's figures: bf16 as
-    the row's own, f32 under "f32"."""
+    WGRAD_FIT_CASES, BATCH_FITS fits, in bf16 and f32: one launch for the
+    fits, each fit's dW against its plain version at WGRAD_TOL and bitwise
+    the single-fit launch on that fit's own slice; deterministic. Timed:
+    the fits' launch against BATCH_FITS x the single-fit launch, the plain
+    version per fit, and one grouped cuDNN weight gradient (groups =
+    BATCH_FITS). Returns each kernel's figures: bf16 as the row's own, f32
+    under "f32"."""
     from dip_tpu_torch.ops import hopper_wgrad as W
 
     stats = {k: {"max_abs_err": 0.0} for k in WGRAD}
@@ -993,7 +1075,9 @@ def phase_wgrad_fit_axis_parity(dev: torch.device) -> dict:
             def grouped():
                 return torch.nn.grad.conv2d_weight(xg, w_size, gg, 1, halo, groups=b)
 
+            before = W.LAUNCHES[name]
             got = kern()
+            launches = W.LAUNCHES[name] - before
             want = plain_all()
             torch.cuda.synchronize()
             rel, abs_err = rel_err(got, want)
@@ -1008,6 +1092,7 @@ def phase_wgrad_fit_axis_parity(dev: torch.device) -> dict:
             bound_ms, by = wgrad_bound(ks, (b, *xs), (b, *gs), dtype)
             log(f"[parity] {name:11s} {str(dtype)[6:]:8s} fits B={b} halo {halo} x {xs} g {gs} "
                 f"a fit: rel {rel:.2e} abs {abs_err:.2e}, grouped cudnn rel {lib_rel:.2e}; "
+                f"{launches} launch(es); "
                 f"each fit's dW {'bitwise' if same else 'NOT'} the single-fit launch's | B "
                 f"fits {ms:.4f} ms against B x one fit {b * one_ms:.4f} ms ({b} x "
                 f"{one_ms:.4f}), plain {plain_ms:.4f} ms, grouped cudnn {lib_ms:.4f} ms, bound "
@@ -1024,6 +1109,8 @@ def phase_wgrad_fit_axis_parity(dev: torch.device) -> dict:
                                    f"version: rel {rel:.3e}")
             if not same:
                 raise RuntimeError(f"{name}: a fit's bits depend on the batch")
+            if launches != 1:
+                raise RuntimeError(f"{name} {dtype}: {launches} launches for {b} fits, not one")
             del x, g, xg, gg, got, want
     return stats
 
@@ -1187,6 +1274,18 @@ def input_size(spec) -> tuple[int, int]:
     return tuple(spec.spatial_size or spec.net_input.shape[1:3])
 
 
+def output_size(spec) -> tuple[int, int]:
+    """The (h, w) of the fit's render: z's, but for DCGAN's (h + 2) * 2 at
+    each of its 2x stages."""
+    from dip_tpu_torch.models import DCGAN
+
+    h, w = input_size(spec)
+    if isinstance(spec.model, DCGAN):
+        up = 2 ** len(spec.model.ups)
+        return (h + 2) * up, (w + 2) * up
+    return h, w
+
+
 def fused_scales(model, size: tuple[int, int]) -> list[bool]:
     """Which decoder scales of a Skip take the fused seam on an input of
     `size`, scale 0 first, decided as Skip.forward decides: up_conv on,
@@ -1196,6 +1295,7 @@ def fused_scales(model, size: tuple[int, int]) -> list[bool]:
     gives (h + 2*((k-1)//2) - k)//2 + 1; with an 'avg' or 'max' post-down
     the conv keeps h and the pool gives h//2. A scale that does not fuse
     upsamples, and crops to its skip."""
+    from dip_tpu_torch.models.blocks import POST_DOWN
     from dip_tpu_torch.ops.up_conv import can_fuse_up2
 
     n = len(model.ch_skip)
@@ -1209,7 +1309,7 @@ def fused_scales(model, size: tuple[int, int]) -> list[bool]:
         if mode == "stride":
             p = (k - 1) // 2
             h, w = (h + 2 * p - k) // 2 + 1, (w + 2 * p - k) // 2 + 1
-        elif mode in ("avg", "max"):
+        elif mode in POST_DOWN:  # the pools, and the Lanczos post-down's preserve-size pad
             h, w = h // 2, w // 2
         else:
             raise ValueError(f"the count does not follow downsample_mode {mode!r}")
@@ -1223,12 +1323,22 @@ def fused_scales(model, size: tuple[int, int]) -> list[bool]:
     return fused
 
 
+def post_downs(model) -> int:
+    """The Lanczos post-downs of a forward: each a downsample launch."""
+    from dip_tpu_torch.models.blocks import Conv
+
+    return sum(1 for m in model.modules()
+               if isinstance(m, Conv) and m.post_down in ("lanczos2", "lanczos3"))
+
+
 def path_launches(spec, steps: int, downsample_per_step: int = 0) -> dict:
     """What a `steps`-step fit of `spec` and its render launch: each fused
     seam of a Skip (fused_scales) runs fwd (or fwd_carry where a skip
     branch hands it its carry), the s2d pack of dz, dgrad and wgrad a
     step, and fwd once more in the render (the zoo's other nets have no
-    seam); the weight-gradient kernels as wgrad_per_step says."""
+    seam); the weight-gradient kernels as wgrad_per_step says; the
+    downsample `downsample_per_step` times a step (an SR loss's) and once
+    at each Lanczos post-down of every forward, the render's included."""
     from dip_tpu_torch.models import Skip
 
     model = spec.model
@@ -1238,7 +1348,8 @@ def path_launches(spec, steps: int, downsample_per_step: int = 0) -> dict:
     k3, k1 = wgrad_per_step(model)
     return {"fwd": (steps + 1) * (n_seams - carried), "fwd_carry": (steps + 1) * carried,
             "dgrad": steps * n_seams, "wgrad": steps * n_seams, "downsample":
-            downsample_per_step * steps, "s2d_pack": steps * n_seams,
+            downsample_per_step * steps + post_downs(model) * (steps + 1),
+            "s2d_pack": steps * n_seams,
             "wgrad3x3_s1": k3 * steps, "wgrad1x1": k1 * steps}
 
 
@@ -1266,7 +1377,7 @@ def run_fit(spec, dev: torch.device, card: str, prefix: str, tag: str, want: dic
     metrics = " | ".join(f"{k} {v[0]:.2f} -> {v[-1]:.2f} dB" for k, v in hist.items()
                          if k.startswith("psnr"))
     log(f"[{prefix}] {tag}: {ips:.2f} it/s, {1e3 / ips:.2f} ms/step (steps {i0 + 1}-{i1}) "
-        f"| loss {loss[0]:.6g} -> {loss[-1]:.6g} | {metrics} | backtracked "
+        f"| loss {loss[0]:.9g} -> {loss[-1]:.9g} | {metrics} | backtracked "
         f"{int(hist['backtracked'].sum()) if 'backtracked' in hist else '-'} | peak "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, reserved "
         f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB | launches {delta} "
@@ -1277,7 +1388,7 @@ def run_fit(spec, dev: torch.device, card: str, prefix: str, tag: str, want: dic
         raise RuntimeError(f"loss not finite and falling: {loss}")
     if rising is not None and not hist[rising][-1] > hist[rising][0]:
         raise RuntimeError(f"{rising} not rising: {hist[rising]}")
-    want_shape = (1, *input_size(spec), spec.model.num_output_channels)
+    want_shape = (1, *output_size(spec), spec.model.num_output_channels)
     if spec.postprocess is not None:  # e.g. the classifier's crop of FI / AM
         want_shape = tuple(spec.postprocess(torch.zeros(want_shape)).shape)
     if tuple(out.shape) != want_shape or not torch.isfinite(out).all():
@@ -1746,9 +1857,8 @@ def _batch_conv_wgrad(dev: torch.device, card: str) -> dict:
     where it is made: every fit's dW bitwise the single-fit launch on that
     fit's own slice (those launches are taken back from the counters). The
     launches, counters set to 0 just before and read just after: the seam
-    kernels one fit's; K5 and K6 one fit's in bf16 (one launch for all the
-    fits), BATCH_FITS x one fit's in f32 (a launch a fit). Returns them,
-    and apart the f32 fits' K5 and K6 launches (single-fit launches)."""
+    kernels, K5 and K6 one fit's in both dtypes (one launch for all the
+    fits). Returns them, and apart the f32 fits' K5 and K6 launches."""
     from dip_tpu_torch.ops import hopper_wgrad as W
     from dip_tpu_torch.ops import launches as L
     from dip_tpu_torch.parallel import BatchEngine
@@ -1784,8 +1894,6 @@ def _batch_conv_wgrad(dev: torch.device, card: str) -> dict:
         finally:
             W.wgrad3x3_s1, W.wgrad1x1 = real["wgrad3x3_s1"], real["wgrad1x1"]
         want = path_launches(spec, 1)
-        if cd is None:
-            want = {k: v * (BATCH_FITS if k in WGRAD else 1) for k, v in want.items()}
         loss = metrics["loss"].cpu().numpy()
         log(f"[batch] {BATCH_FITS} fits, inpaint 'kate' {FIT_SIZE}^2 {cd or 'float32'} "
             f"conv_wgrad='all', one batched step: {held['calls']} K5/K6 fit-axis calls, every "
@@ -1966,64 +2074,157 @@ def _spatial_parts(spec, dev: torch.device, blocks: int, seed: int = 0) -> tuple
     return eng, eng.init_state(seed + 1, z, spec.extra_params), to_device(spec.aux, eng.device)
 
 
-def phase_spatial(dev: torch.device, card: str) -> dict:
-    """[spatial] SpatialEngine: the flagship Skip 5x128 (bilinear seams,
-    reflection pad, jitter 1/30, EMA) at full width, its activations cut
-    into row blocks over a mesh that repeats the one card, at each of
-    SPATIAL_FITS. Under deterministic cuDNN: one step against Engine's from
-    the same seed (loss and every gradient at [batch]'s limits, the BN-fed
-    conv biases printed apart), and GRAPH_STEPS eager steps against run() of
-    as many, bit for bit. Then SPATIAL_STEPS graphed steps: loss finite and
-    falling, render finite, K1-K4 each launched blocks x 5 times a step
-    (K1 once more a block in the render), counters set to 0 just before
-    and read just after; its it/s and peak memory beside the unsharded
-    fit's (run_fit); three eager steps with no host sync. Returns the
-    launches of the graphed sharded runs."""
+def _spatial_spec(net: str, cd: str | None, size: int, steps: int, log_every: int):
+    """The spec of a SPATIAL_FITS entry: `steps` steps, logged every
+    `log_every`, in compute dtype `cd`."""
+    from dip_tpu_torch.bench import synthetic_noisy
+    from dip_tpu_torch.models import dcgan, get_net
+    from dip_tpu_torch.tasks import denoise
+
+    if net == "flagship":
+        return _flagship_spec(cd, steps, log_every, size)
+    if net.startswith("library "):
+        spec = _masked_spec("inpaint", "library", cd, "all", net_type=net.split()[1])
+    else:
+        clean, noisy = synthetic_noisy(size)
+        spec = denoise.task(noisy, "f16", gt=clean)
+        if net == "flagship lanczos2":
+            spec = dataclasses.replace(spec, model=get_net(
+                32, "skip", "reflection", "bilinear", skip_n11=4, downsample_mode="lanczos2"))
+        elif net == "texture_nets":
+            spec = dataclasses.replace(spec, model=get_net(32, "texture_nets", "reflection",
+                                                           "nearest"))
+        elif net == "dcgan":
+            spec = dataclasses.replace(spec, model=dcgan(), input_depth=2,
+                                       spatial_size=(size // 4 - 2, size // 4 - 2))
+        else:
+            raise ValueError(f"unknown [spatial] net {net!r}")
+    return dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, num_iter=steps, compute_dtype=cd, log_every=log_every))
+
+
+def _norm_fed_biases(model) -> set[str]:
+    """The conv biases that a norm follows: their exact gradient is 0 (a
+    norm takes out a per-channel constant), so both sides read rounding
+    noise there (the Skip's and TextureNet's every conv but the head,
+    ResNet's neck, the convs of a UNet's normed double convs; DCGAN has no
+    bias)."""
+    import torch.nn as nn
+
+    from dip_tpu_torch.models import ResNet, Skip, TextureNet, UNet
+
+    if isinstance(model, (Skip, TextureNet)):
+        return {f"convs.{j}.bias" for j in range(len(model.convs) - 1)}
+    if isinstance(model, ResNet):
+        return {"neck.bias"}
+    if isinstance(model, UNet):
+        return {f"{name}.convs.{j}.bias" for name, m in model.named_modules()
+                if hasattr(m, "norms") for j, nrm in enumerate(m.norms)
+                if not isinstance(nrm, nn.Identity) and m.convs[j].bias is not None}
+    return set()
+
+
+def _one_step(net: str, cd: str | None, size: int, blocks: int, dev: torch.device) -> tuple:
+    """One step of a SPATIAL_FITS fit in compute dtype `cd`, over `blocks`
+    row blocks (0: Engine, unsharded) from seed 0: (loss, every
+    parameter's gradient in f32, the norm-fed conv biases)."""
+    spec = _spatial_spec(net, cd, size, 1, 1)
+    eng, st, aux = _spatial_parts(spec, dev, blocks) if blocks else _fit_parts(spec, dev)
+    _, m = eng.step(st, aux)
+    grads = {k: p.grad.float() for k, p in st.params.items()}
+    return m["loss"].item(), grads, _norm_fed_biases(spec.model)
+
+
+def _step_err(a: tuple, b: tuple) -> tuple[float, float, float]:
+    """(loss rel, the largest gradient error over b's largest gradient
+    outside the norm-fed biases, the same over those biases) of step a
+    against step b."""
+    (la, ga, noise), (lb, gb, _) = a, b
+    g_max = max(v.abs().max().item() for v in gb.values())
+    errs = {k: (ga[k] - v).abs().max().item() / g_max for k, v in gb.items()}
+    return (abs(la / lb - 1), max(e for k, e in errs.items() if k not in noise),
+            max([errs[k] for k in noise], default=0.0))
+
+
+def _spatial_against_engine(net: str, size: int, cd: str | None, blocks: int,
+                            dev: torch.device, tag: str, card: str) -> None:
+    """[spatial] under deterministic cuDNN: one sharded step against
+    Engine's from the same seed, and GRAPH_STEPS eager sharded steps
+    against run() of as many, bit for bit, in the fit's dtype. The step is
+    held in f32 at [batch]'s f32 limits (the norm-fed conv biases apart):
+    there a fault reads O(1) and the order of sums ~1e-2. In bf16 the
+    loss is held at [batch]'s bf16 limit, and the gradients against
+    Engine's f32 step within SPATIAL_BF16_FLOOR times the geometry's bf16
+    rounding floor (Engine's own bf16 step against its f32 step), which at
+    512^2 over 4 blocks exceeds [batch]'s bf16 limit of 1e-1 (PERF.md §6):
+    there two orders of bf16 sums differ by as much as bf16 differs from
+    f32."""
+    with _deterministic_cudnn():
+        u32 = _one_step(net, None, size, 0, dev)
+        loss32, grad32, noise32 = _step_err(_one_step(net, None, size, blocks, dev), u32)
+        line = (f"[spatial] {tag}, cudnn deterministic: one sharded step against Engine's from "
+                f"the same seed, f32: loss rel {loss32:.2e} (limit {BATCH_LOSS_TOL[None]:.0e}), "
+                f"gradients max err / the largest {grad32:.2e} (limit "
+                f"{BATCH_GRAD_TOL[None]:.0e}; the {len(u32[2])} norm-fed conv biases, zero in "
+                f"exact arithmetic, {noise32:.2e})")
+        loss16 = grad16 = floor = 0.0
+        if cd is not None:
+            u16 = _one_step(net, cd, size, 0, dev)
+            s16 = _one_step(net, cd, size, blocks, dev)
+            loss16, near16, noise16 = _step_err(s16, u16)
+            grad16, floor = _step_err(s16, u32)[1], _step_err(u16, u32)[1]
+            line += (f"; {cd}: loss rel {loss16:.2e} (limit {BATCH_LOSS_TOL[cd]:.0e}), "
+                     f"gradients against Engine's f32 step {grad16:.2e} (limit "
+                     f"{SPATIAL_BF16_FLOOR} x Engine's own {cd} step's {floor:.2e}), against "
+                     f"Engine's {cd} step {near16:.2e} (the norm-fed biases {noise16:.2e})")
+            del u16, s16
+        log(line + f" | card {card}")
+        if loss32 > BATCH_LOSS_TOL[None] or grad32 > BATCH_GRAD_TOL[None] or (
+                cd is not None and (loss16 > BATCH_LOSS_TOL[cd]
+                                    or grad16 > SPATIAL_BF16_FLOOR * floor)):
+            raise RuntimeError("the sharded step differs from Engine's")
+        del u32
+        ten = _spatial_spec(net, cd, size, GRAPH_STEPS, GRAPH_STEPS)
+        eng_e, st_e, aux_e = _spatial_parts(ten, dev, blocks)
+        eager = torch.stack([eng_e.step(st_e, aux_e)[1]["loss"]
+                             for _ in range(GRAPH_STEPS)]).cpu()
+        eng_g, st_g, aux_g = _spatial_parts(ten, dev, blocks)
+        _, hist = eng_g.run(st_g, aux_g)
+        torch.cuda.synchronize(dev)
+        same = torch.equal(eager, torch.from_numpy(hist["loss"]))
+        differ = _differing(st_e, st_g)
+        log(f"[spatial] {tag}, cudnn deterministic: {GRAPH_STEPS} eager sharded steps "
+            f"against run() ({GRAPH_STEPS - 1} replays): losses "
+            f"{'bitwise equal' if same else 'DIFFER'}, params and EMA "
+            f"{'bitwise equal' if not differ else 'DIFFER in ' + ', '.join(differ[:6])}")
+        if not same or differ:
+            raise RuntimeError("the graphed sharded steps differ from the eager ones")
+
+
+def phase_spatial(dev: torch.device, card: str) -> tuple[dict, dict]:
+    """[spatial] SpatialEngine at each of SPATIAL_FITS, at full width, its
+    activations cut into row blocks over a mesh that repeats the one card:
+    one step against Engine's (held in f32; in bf16 the loss and the
+    gradients against the rounding floor) and eager
+    against graphed steps (_spatial_against_engine). Then SPATIAL_STEPS graphed steps: loss
+    finite and falling, render finite and of the output's shape, each
+    kernel launched exactly blocks x one fit's (path_launches: K1-K4 5 a
+    step at the Skips' fused seams, K1 once more in the render; K5/K6 a
+    step at each routed conv; K7 at each Lanczos post-down of every
+    forward), counters set to 0 just before and read just after; its it/s
+    and peak memory beside the unsharded fit's (run_fit); three eager steps
+    with no host sync; each fit's wall time. Returns the launches of the
+    graphed sharded runs, and apart those of the Lanczos Skip's."""
     from dip_tpu_torch.fit.engine import tf32_flags
 
     total: dict = {}
-    for cd, size, blocks in SPATIAL_FITS:
-        fit = f"flagship {size}^2 {cd or 'float32'}"
+    lanczos: dict = {}
+    for net, cd, size, blocks in SPATIAL_FITS:
+        t_fit = time.perf_counter()
+        fit = f"{net} {size}^2 {cd or 'float32'}"
         tag = f"{fit}, {blocks} row blocks on one card"
-        with _deterministic_cudnn():
-            spec = _flagship_spec(cd, 1, 1, size)
-            eng_s, st_s, aux_s = _spatial_parts(spec, dev, blocks)
-            _, m_s = eng_s.step(st_s, aux_s)
-            eng_u, st_u, aux_u = _fit_parts(spec, dev)
-            _, m_u = eng_u.step(st_u, aux_u)
-            g_max = max(p.grad.abs().max().item() for p in st_u.params.values())
-            noise = {f"convs.{j}.bias" for j in range(len(spec.model.convs) - 1)}
-            errs = {k: (st_s.params[k].grad - p.grad).abs().max().item() / g_max
-                    for k, p in st_u.params.items()}
-            worst_grad = max(e for k, e in errs.items() if k not in noise)
-            worst_noise = max(errs[k] for k in noise)
-            worst_loss = abs(m_s["loss"].item() / m_u["loss"].item() - 1)
-            tol_l, tol_g = BATCH_LOSS_TOL[cd], BATCH_GRAD_TOL[cd]
-            log(f"[spatial] {tag}, cudnn deterministic: one sharded step against Engine's "
-                f"from the same seed: loss rel {worst_loss:.2e} (limit {tol_l:.0e}), gradients "
-                f"max err / the largest {worst_grad:.2e} (limit {tol_g:.0e}; the {len(noise)} "
-                f"BN-fed conv biases, zero in exact arithmetic, {worst_noise:.2e}) | card {card}")
-            if worst_loss > tol_l or worst_grad > tol_g:
-                raise RuntimeError("the sharded step differs from Engine's")
-            del eng_s, st_s, aux_s, eng_u, st_u, aux_u
-            spec = _flagship_spec(cd, GRAPH_STEPS, GRAPH_STEPS, size)
-            eng_e, st_e, aux_e = _spatial_parts(spec, dev, blocks)
-            eager = torch.stack([eng_e.step(st_e, aux_e)[1]["loss"]
-                                 for _ in range(GRAPH_STEPS)]).cpu()
-            eng_g, st_g, aux_g = _spatial_parts(spec, dev, blocks)
-            _, hist = eng_g.run(st_g, aux_g)
-            torch.cuda.synchronize(dev)
-            same = torch.equal(eager, torch.from_numpy(hist["loss"]))
-            differ = _differing(st_e, st_g)
-            log(f"[spatial] {tag}, cudnn deterministic: {GRAPH_STEPS} eager sharded steps "
-                f"against run() ({GRAPH_STEPS - 1} replays): losses "
-                f"{'bitwise equal' if same else 'DIFFER'}, params and EMA "
-                f"{'bitwise equal' if not differ else 'DIFFER in ' + ', '.join(differ[:6])}")
-            if not same or differ:
-                raise RuntimeError("the graphed sharded steps differ from the eager ones")
-            del eng_e, st_e, aux_e, eng_g, st_g, aux_g
-
-        spec = _flagship_spec(cd, SPATIAL_STEPS, 10, size)
+        _spatial_against_engine(net, size, cd, blocks, dev, tag, card)
+        spec = _spatial_spec(net, cd, size, SPATIAL_STEPS, 10)
         _, b1_ips = run_fit(spec, dev, card, "spatial", f"unsharded reference, {fit}",
                             path_launches(spec, SPATIAL_STEPS), None)
         b1_peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -2042,6 +2243,7 @@ def phase_spatial(dev: torch.device, card: str) -> dict:
         ips = (i1 - i0) / (t1 - t0)
         want = {k: blocks * v for k, v in path_launches(spec, SPATIAL_STEPS).items()}
         loss = hist["loss"]
+        out_shape = (1, *output_size(spec), spec.model.num_output_channels)
         log(f"[spatial] {tag}, SpatialEngine graphed: {ips:.2f} it/s (steps {i0 + 1}-{i1}) "
             f"against the unsharded fit's {b1_ips:.2f} | peak {peak:.2f} GiB against "
             f"{b1_peak:.2f} (every block on one card: the peak is not expected to fall) | loss "
@@ -2051,9 +2253,11 @@ def phase_spatial(dev: torch.device, card: str) -> dict:
             raise RuntimeError(f"sharded launch counts {delta} != {want}")
         if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
             raise RuntimeError(f"the sharded fit's loss is not finite and falling: {loss}")
-        if tuple(out.shape) != (1, size, size, 3) or not torch.isfinite(out).all():
-            raise RuntimeError(f"bad sharded render {tuple(out.shape)}")
+        if tuple(out.shape) != out_shape or not torch.isfinite(out).all():
+            raise RuntimeError(f"bad sharded render {tuple(out.shape)}, expected {out_shape}")
         total = {k: total.get(k, 0) + v for k, v in delta.items()}
+        if post_downs(spec.model):
+            lanczos = {k: lanczos.get(k, 0) + v for k, v in delta.items()}
         eng.step(state, aux)
         torch.cuda.synchronize(dev)
         torch.cuda.set_sync_debug_mode("error")
@@ -2065,7 +2269,8 @@ def phase_spatial(dev: torch.device, card: str) -> dict:
         torch.cuda.synchronize(dev)
         log(f"[sync] SpatialEngine {tag}: 3 sharded steps made no host sync")
         del eng, state, aux, out
-    return total
+        log(f"[spatial] {tag}: {time.perf_counter() - t_fit:.1f} s | card {card}")
+    return total, lanczos
 
 
 def synthetic_sr_png(path: Path, h: int, w: int, seed: int) -> None:
@@ -2244,16 +2449,21 @@ def synthetic_flash(size: int) -> tuple[np.ndarray, np.ndarray]:
 
 def phase_flash(dev: torch.device, card: str) -> None:
     """[flash] Flash/no-flash at 512^2 in bf16 through run_task, MAIN_STEPS
-    steps: nearest up at the two top seams and bilinear below, all fused;
-    the loss falls, psnr_track rises, the launch counts hold."""
+    steps at the recipe's lr, under deterministic cuDNN from run_task's
+    fixed seeds (numpy images, z and weights from CPU generators), so that
+    every run reads the same: nearest up at the two top seams and bilinear
+    below, all fused; the loss falls, psnr_track rises, the launch counts
+    hold."""
     from dip_tpu_torch.tasks import flash_no_flash
 
     flash, noflash = synthetic_flash(FIT_SIZE)
     spec = flash_no_flash.task(flash, noflash, num_iter=MAIN_STEPS)
     spec = dataclasses.replace(spec, cfg=dataclasses.replace(
         spec.cfg, compute_dtype="bfloat16", log_every=10))
-    run_fit(spec, dev, card, "flash", f"flash/no-flash {FIT_SIZE}^2 bfloat16 up modes "
-            f"{spec.model.up_modes}", path_launches(spec, MAIN_STEPS), "psnr_track")
+    with _deterministic_cudnn():
+        run_fit(spec, dev, card, "flash", f"flash/no-flash {FIT_SIZE}^2 bfloat16 up modes "
+                f"{spec.model.up_modes}, cudnn deterministic",
+                path_launches(spec, MAIN_STEPS), "psnr_track")
 
 
 def phase_checkpoint(dev: torch.device, card: str) -> None:
@@ -2716,13 +2926,15 @@ def phase_recipes(dev: torch.device, card: str, root: Path) -> None:
 
 
 def phase_train(dev: torch.device, card: str) -> None:
-    """[train] `train_backbone --quick` on the default device: AlexNet
-    trained 400 steps at batch 16, exported, then feature inversion of
-    fc6 and activation maximization of fc8 class 3, 60 iterations each,
-    records to build/train: it returns 0, the held-out accuracy is at
-    least TRAIN_ACC, the .pth reloads through pretrained/convert.py bit for
-    bit the trained state (recorded at the export), and the FI loss and
-    the AM objective fall. The AM closed loop is printed, not held."""
+    """[train] `train_backbone --quick` on the default device under
+    deterministic cuDNN (its seeds are fixed: the init's CPU generator and
+    numpy's batches), so that every run reads the same: AlexNet trained 400
+    steps at batch 16, exported, then feature inversion of fc6 and
+    activation maximization of fc8 class 3, 60 iterations each, records to
+    build/train: it returns 0, the held-out accuracy is at least
+    TRAIN_ACC, the .pth reloads through pretrained/convert.py bit for bit
+    the trained state (recorded at the export), and the FI loss and the AM
+    objective fall. The AM closed loop is printed, not held."""
     import json as _json
     import shutil
 
@@ -2742,7 +2954,8 @@ def phase_train(dev: torch.device, card: str) -> None:
 
     tb.export_torch = keep
     try:
-        rc, _ = _call("train", tb.main, ["--quick"], outdir=str(out))
+        with _deterministic_cudnn():
+            rc, _ = _call("train", tb.main, ["--quick"], outdir=str(out))
     finally:
         tb.export_torch = export
     fi, am = [_json.loads(line) for line in (out / "reproduce.jsonl").open()]
@@ -2788,6 +3001,7 @@ def main() -> int:
     s2d = phase_s2d_parity(dev)
     wgrad = phase_wgrad_parity(dev)
     wgrad_fits = phase_wgrad_fit_axis_parity(dev)
+    down_rows = phase_downsample_rows_parity(dev)
     phase_small_reference(dev)
     phase_zoo_small_reference(dev)
     launches, b1_ips = phase_main_path(dev, card)
@@ -2798,7 +3012,9 @@ def main() -> int:
     phase_graph(dev, card)
     b8_ips = phase_queue(dev, card, b1_ips)
     batch_launches, batch_f32_wgrad = phase_batch(dev, card, b8_ips)
-    phase_spatial(dev, card)
+    t0 = time.perf_counter()
+    _, lanczos_launches = phase_spatial(dev, card)
+    log(f"[spatial]: {time.perf_counter() - t0:.1f} s | card {card}")
     phase_fleet(dev, card)
     phase_flash(dev, card)
     phase_checkpoint(dev, card)
@@ -2829,6 +3045,12 @@ def main() -> int:
     entry = _entry("downsample_fused", DOWNSAMPLE, sr_launches["downsample"], down)
     entry["shapes"] = down["shapes"]
     kernels.append(entry)
+    # its row form (row pad 0, the block's halo rows gathered): launches from
+    # the [spatial] Skip with the lanczos2 post-down, figures at (1,512,512,128)
+    entry = _entry("downsample_fused (row form)", DOWNSAMPLE, lanczos_launches["downsample"],
+                   down_rows)
+    entry["shape"] = down_rows["shape"]
+    kernels.append(entry)
     kernels.append(_entry("s2d_pack", S2D, launches["s2d_pack"], s2d))
     for k, src_rep in WGRAD.items():
         entry = _entry(k, src_rep, masked_launches[k], wgrad[k])
@@ -2837,13 +3059,13 @@ def main() -> int:
         kernels.append(entry)
     # the weight gradients' fit axis: launches from the [batch] 'kate' fits
     # with conv_wgrad='all', figures at B = 8 fits of the top 'kate' shape.
-    # The row's launches are the bf16 fit-axis launches; the f32 fits run
-    # the single-fit kernel once a fit, counted under "f32" with its times
+    # The row's launches are the bf16 fit-axis launches; the f32 fits' own
+    # fit-axis launches are under "f32" with its times
     for k, src_rep in WGRAD.items():
         entry = _entry(f"{k} (fit axis)", src_rep, batch_launches[k] - batch_f32_wgrad[k],
                        wgrad_fits[k])
         entry["sources"] = {str(d)[6:]: src for d, src in WGRAD_SOURCES.items()}
-        entry["f32"] = dict(wgrad_fits[k]["f32"], single_fit_launches=batch_f32_wgrad[k])
+        entry["f32"] = dict(wgrad_fits[k]["f32"], launches=batch_f32_wgrad[k])
         entry["fits"] = BATCH_FITS
         kernels.append(entry)
     print(card)

@@ -22,6 +22,7 @@ raises.
     python -m dip_tpu_torch.bench --profile 5 --fit kate [--conv-wgrad 3x3]
     python -m dip_tpu_torch.bench --profile 5 --fit library-unet --conv-wgrad all
     python -m dip_tpu_torch.bench --profile 5 --fit am-alexnet
+    python -m dip_tpu_torch.bench --profile 5 --fit flagship-lanczos2 --blocks 4
 
 `--profile` profiles a graphed chunk and then as many eager steps, and
 prints each window's wall and kernel ms a step and the device's idle
@@ -30,7 +31,10 @@ up, masked MSE) on a synthetic image and mask of the same size in place of
 the flagship, `--fit library-unet` and `library-resnet` inpainting
 'library' with its UNet or its ResNet, `--fit fi-alexnet` feature
 inversion at AlexNet fc6 and `am-alexnet` activation maximization at
-AlexNet conv4 (227^2 under a generator at 256^2, whatever --size says);
+AlexNet conv4 (227^2 under a generator at 256^2, whatever --size says),
+`--fit flagship-lanczos2` the flagship with the lanczos2 post-down in
+place of its stride-2 convs; `--blocks N` profiles a flagship fit over N
+row blocks on the one card (parallel/spatial.py's SpatialEngine);
 `--conv-wgrad` routes their conv
 weight gradients through the port's kernels (the model's `conv_wgrad`,
 'off' by default). The bf16 3x3
@@ -174,9 +178,10 @@ def _pretrained(fit: str, compute_dtype: str | None, device: str, steps: int):
     return start_task(spec, 0, device=dev)
 
 
-def flagship_spec(size: int, iters: int, compute_dtype: str | None, target: torch.Tensor):
+def flagship_spec(size: int, iters: int, compute_dtype: str | None, target: torch.Tensor,
+                  downsample_mode: str = "stride"):
     """The flagship fit as a TaskSpec of `iters` steps in one chunk, fitting
-    `target` (on the fit's device)."""
+    `target` (on the fit's device); `downsample_mode` the Skip's."""
     from dip_tpu_torch.fit.engine import FitConfig, default_metrics
     from dip_tpu_torch.models import Skip
     from dip_tpu_torch.ops.losses import mse
@@ -184,7 +189,7 @@ def flagship_spec(size: int, iters: int, compute_dtype: str | None, target: torc
 
     model = Skip(num_input_channels=32, num_channels_down=[128] * 5,
                  num_channels_up=[128] * 5, num_channels_skip=[4] * 5,
-                 upsample_mode="bilinear", pad="reflection")
+                 upsample_mode="bilinear", pad="reflection", downsample_mode=downsample_mode)
     cfg = FitConfig(num_iter=iters, lr=0.01, reg_noise_std=1.0 / 30,
                     exp_weight=0.99, log_every=iters, compute_dtype=compute_dtype)
     return TaskSpec(name="flagship", model=model, cfg=cfg,
@@ -193,16 +198,24 @@ def flagship_spec(size: int, iters: int, compute_dtype: str | None, target: torc
                     spatial_size=(size, size))
 
 
-def _flagship(size: int, iters: int, compute_dtype: str | None, device: str):
+def _flagship(size: int, iters: int, compute_dtype: str | None, device: str,
+              downsample_mode: str = "stride", blocks: int = 0):
     """(engine, state, target) of the flagship fit on a CUDA device: weights
-    from seed 0, z from seed 1."""
+    from seed 0, z from seed 1; with `blocks`, a SpatialEngine over that
+    many row blocks on the one device."""
     from dip_tpu_torch.fit.engine import Engine
+    from dip_tpu_torch.parallel.mesh import Mesh
+    from dip_tpu_torch.parallel.spatial import SpatialEngine
     from dip_tpu_torch.utils.noise import get_noise
 
     dev = _cuda(device)
     target = torch.from_numpy(synthetic_noisy(size)[1]).to(dev)
-    spec = flagship_spec(size, iters, compute_dtype, target)
-    eng = Engine(spec.model, spec.loss_fn, spec.cfg, spec.metrics_fn, device=dev)
+    spec = flagship_spec(size, iters, compute_dtype, target, downsample_mode)
+    if blocks:
+        eng = SpatialEngine(spec.model, spec.loss_fn, spec.cfg, spec.metrics_fn,
+                            mesh=Mesh([dev] * blocks, axis="sp"))
+    else:
+        eng = Engine(spec.model, spec.loss_fn, spec.cfg, spec.metrics_fn, device=dev)
     z = get_noise(torch.Generator().manual_seed(1), 32, "noise", (size, size),
                   device=eng.device)
     return eng, eng.init_state(0, z), target
@@ -397,17 +410,21 @@ def _profile_window(prof_steps, steps: int, what: str, eng) -> dict:
 
 
 def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
-            device: str = "cuda", fit: str = "flagship", conv_wgrad: str = "off") -> dict:
-    """The flagship (or an inpainting fit of MASKED_FITS, with
-    `conv_wgrad`, or a fit of PRETRAINED_FITS at its recipe's size) under
-    torch.profiler, after a warm chunk and 10 warm eager steps: a graphed
-    chunk of `steps` replays, then `steps` eager steps."""
+            device: str = "cuda", fit: str = "flagship", conv_wgrad: str = "off",
+            blocks: int = 0) -> dict:
+    """The flagship (or its lanczos2 form, either over `blocks` row blocks
+    with `blocks`; or an inpainting fit of MASKED_FITS, with `conv_wgrad`,
+    or a fit of PRETRAINED_FITS at its recipe's size) under torch.profiler,
+    after a warm chunk and 10 warm eager steps: a graphed chunk of `steps`
+    replays, then `steps` eager steps."""
     if fit in MASKED_FITS:
         eng, state, target = _kate(size, compute_dtype, device, conv_wgrad, steps, fit)
     elif fit in PRETRAINED_FITS:
         eng, state, target = _pretrained(fit, compute_dtype, device, steps)
     else:
-        eng, state, target = _flagship(size, steps, compute_dtype, device)
+        eng, state, target = _flagship(size, steps, compute_dtype, device,
+                                       "lanczos2" if fit == "flagship-lanczos2" else "stride",
+                                       blocks)
 
     def graphed():
         eng.run_chunk(state, target, steps)
@@ -421,8 +438,9 @@ def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
     for _ in range(10):
         eng.step(state, target)
     tag = compute_dtype or "float32"
-    what = f"{fit} {tag}" + (f" conv_wgrad={conv_wgrad}" if fit in MASKED_FITS else "")
-    out = {"fit": fit, "dtype": tag, "conv_wgrad": conv_wgrad}
+    what = (f"{fit} {tag}" + (f" conv_wgrad={conv_wgrad}" if fit in MASKED_FITS else "")
+            + (f" over {blocks} row blocks" if blocks else ""))
+    out = {"fit": fit, "dtype": tag, "conv_wgrad": conv_wgrad, "blocks": blocks}
     for mode, fn in (("graphed", graphed), ("eager", eager)):
         out[mode] = _profile_window(fn, steps, f"{what} {mode}", eng)
     return out
@@ -436,17 +454,24 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="instead of timing, profile STEPS steps per dtype")
-    ap.add_argument("--fit", choices=("flagship", *MASKED_FITS, *PRETRAINED_FITS),
+    ap.add_argument("--fit", choices=("flagship", "flagship-lanczos2", *MASKED_FITS,
+                                      *PRETRAINED_FITS),
                     default="flagship", help="the fit --profile runs")
+    ap.add_argument("--blocks", type=int, default=0,
+                    help="--profile a flagship --fit over this many row blocks on the card "
+                         "(SpatialEngine)")
     ap.add_argument("--conv-wgrad", default="off", choices=CONV_WGRAD,
                     help="an inpainting --fit: route these conv weight gradients through "
                          "the kernels")
     args = ap.parse_args()
     if args.conv_wgrad != "off" and not (args.profile and args.fit in MASKED_FITS):
         ap.error("--conv-wgrad is an option of --profile with an inpainting --fit")
+    if args.blocks and not (args.profile and args.fit.startswith("flagship")):
+        ap.error("--blocks is an option of --profile with a flagship --fit")
     if args.profile:
         for cd in ("bfloat16", None):
-            profile(args.size, args.profile, cd, fit=args.fit, conv_wgrad=args.conv_wgrad)
+            profile(args.size, args.profile, cd, fit=args.fit, conv_wgrad=args.conv_wgrad,
+                    blocks=args.blocks)
     else:
         run_full(args.size, args.iters)
 

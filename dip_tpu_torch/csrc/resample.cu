@@ -7,12 +7,17 @@
 // downsample_plain:
 //
 //   x (N,H,W,C) f32, taps k (K,) f32 -> out (N,Ho,Wo,C) f32
-//   out[n,o,q,c] = sum_{i,j} k[i] k[j] x[n, clamp(o*f+i-p), clamp(q*f+j-p), c]
+//   out[n,o,q,c] = sum_{i,j} k[i] k[j] x[n, clamp(o*f+i-ph), clamp(q*f+j-pw), c]
 //
-// with Ho = (H+2p-K)/f + 1 and Wo likewise. Every product and sum is a
-// true f32 FMA (no tensor cores, no TF32): this op sits inside the SR loss
-// and its accuracy bounds the PSNR a fit can reach. Each output sums its K
-// H-pass terms and then its K W-pass terms in ascending tap order.
+// with Ho = (H+2ph-K)/f + 1 and Wo = (W+2pw-K)/f + 1. The row pad ph and
+// the column pad pw are the caller's: a whole image takes the pre-pad p on
+// both axes; a row block of a sharded fit (ops/resample.py's downsample
+// over Rows) brings p halo rows above and K-f-p below, the replication pad
+// itself at the image's true top and bottom, and runs at ph = 0, pw = p.
+// Every product and sum is a true f32 FMA (no tensor cores, no TF32): this
+// op sits inside the SR loss and its accuracy bounds the PSNR a fit can
+// reach. Each output sums its K H-pass terms and then its K W-pass terms in
+// ascending tap order.
 //
 // Replaces downsample_fused (dip_tpu/ops/pallas_resample.py:73, pallas_call
 // at :119, body _kernel_body at :43). The TPU kernel holds whole channel
@@ -34,10 +39,11 @@
 //     memory in one pass of cp.async (16 bytes where the group's channel
 //     runs are whole and aligned, else 4 bytes), every copy issued before
 //     any value is used, so a block waits about one memory latency. The
-//     replication pad is folded into clamped row and column indices; no
-//     padded copy exists. Lanes take neighbouring addresses: a warp stages
-//     one window row, its lanes along columns (3 channels: a row's
-//     contiguous run) or along a pixel's channel run.
+//     replication pad is folded into clamped row and column indices, each
+//     axis shifted by its own pad; no padded copy exists. Lanes take
+//     neighbouring addresses: a warp stages one window row, its lanes along
+//     columns (3 channels: a row's contiguous run) or along a pixel's
+//     channel run.
 //  2. Both passes from shared memory, registers blocked. A thread of the H
 //     pass owns one (window column, channel) and kRows output rows: it reads
 //     the (kRows-1)f+K window values they share once each and feeds each to
@@ -142,8 +148,8 @@ template <int KC, int FC>
 __global__ void __launch_bounds__(kThreads)
 downsample_kernel(const float* __restrict__ x, const float* __restrict__ taps,
                   float* __restrict__ out, int h, int w, int c, int h_out, int w_out,
-                  int f_rt, int k_rt, int pad, int tile_h, int tile_w, int cg, int tiles_w,
-                  int groups, int vec) {
+                  int f_rt, int k_rt, int pad_h, int pad_w, int tile_h, int tile_w, int cg,
+                  int tiles_w, int groups, int vec) {
   const int f = FC > 0 ? FC : f_rt, ksize = KC > 0 ? KC : k_rt;
   extern __shared__ __align__(16) float smem[];
   const int win_h = (tile_h - 1) * f + ksize, win_w = (tile_w - 1) * f + ksize;
@@ -158,7 +164,7 @@ downsample_kernel(const float* __restrict__ x, const float* __restrict__ taps,
   const int c0 = grp * cg, cn = min(cg, c - c0);
   const int b = blockIdx.y;
   const float* xb = x + (size_t)b * h * w * c + c0;
-  const int in_r0 = o_r0 * f - pad, in_c0 = o_c0 * f - pad;
+  const int in_r0 = o_r0 * f - pad_h, in_c0 = o_c0 * f - pad_w;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // 1. the window and the taps, every copy in flight at once
@@ -229,8 +235,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 template <int KC, int FC>
 int launch(const float* x, const float* taps, float* out, int n, int h, int w, int c,
-           int h_out, int w_out, int factor, int ksize, int pad, int tile_h, int tile_w, int cg,
-           size_t smem, cudaStream_t st) {
+           int h_out, int w_out, int factor, int ksize, int pad_h, int pad_w, int tile_h,
+           int tile_w, int cg, size_t smem, cudaStream_t st) {
   if (smem > kSmemStatic) {
     const cudaError_t err = cudaFuncSetAttribute(
         downsample_kernel<KC, FC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -241,8 +247,8 @@ int launch(const float* x, const float* taps, float* out, int n, int h, int w, i
   const int vec = c % 4 == 0 && cg % 4 == 0 && ((cg / 4) & (cg / 4 - 1)) == 0 && aligned16(x);
   const dim3 grid(tiles_w * tiles_h * groups, n);
   downsample_kernel<KC, FC><<<grid, kThreads, smem, st>>>(
-      x, taps, out, h, w, c, h_out, w_out, factor, ksize, pad, tile_h, tile_w, cg, tiles_w,
-      groups, vec);
+      x, taps, out, h, w, c, h_out, w_out, factor, ksize, pad_h, pad_w, tile_h, tile_w, cg,
+      tiles_w, groups, vec);
   return (int)cudaGetLastError();
 }
 
@@ -252,14 +258,15 @@ int launch(const float* x, const float* taps, float* out, int n, int h, int w, i
 // Launches on `stream`, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a plan the
 // kernel does not take (tiles not multiples of 4, shared memory above 227
-// KB, a grid too large). `tile_h`, `tile_w` and `cg` come from
-// hopper_resample.tile_plan.
+// KB, a grid too large, a negative pad). `tile_h`, `tile_w` and `cg` come
+// from hopper_resample.tile_plan; `pad_h` and `pad_w` are the row and the
+// column pre-pad.
 
 extern "C" int dip_downsample(const void* x, const void* taps, void* out, int n, int h, int w,
-                              int c, int h_out, int w_out, int factor, int ksize, int pad,
-                              int tile_h, int tile_w, int cg, void* stream) {
+                              int c, int h_out, int w_out, int factor, int ksize, int pad_h,
+                              int pad_w, int tile_h, int tile_w, int cg, void* stream) {
   if (tile_h < kRows || tile_w < kRows || tile_h % kRows || tile_w % kRows || cg < 1 ||
-      h_out < 1 || w_out < 1 || n < 1 || n > 65535)
+      h_out < 1 || w_out < 1 || n < 1 || n > 65535 || pad_h < 0 || pad_w < 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_floats(tile_h, tile_w, cg, factor, ksize) * sizeof(float);
   const long long blocks = (long long)((w_out + tile_w - 1) / tile_w) *
@@ -271,8 +278,8 @@ extern "C" int dip_downsample(const void* x, const void* taps, void* out, int n,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DIP_DOWN(K, F)                                                                       \
   if (ksize == K && factor == F)                                                             \
-    return launch<K, F>(xs, ts, os, n, h, w, c, h_out, w_out, factor, ksize, pad, tile_h,   \
-                        tile_w, cg, smem, st);
+    return launch<K, F>(xs, ts, os, n, h, w, c, h_out, w_out, factor, ksize, pad_h, pad_w, \
+                        tile_h, tile_w, cg, smem, st);
   DIP_DOWN(8, 2)   // lanczos2
   DIP_DOWN(16, 4)
   DIP_DOWN(32, 8)
@@ -280,6 +287,6 @@ extern "C" int dip_downsample(const void* x, const void* taps, void* out, int n,
   DIP_DOWN(24, 4)
   DIP_DOWN(48, 8)
 #undef DIP_DOWN
-  return launch<0, 0>(xs, ts, os, n, h, w, c, h_out, w_out, factor, ksize, pad, tile_h, tile_w,
-                      cg, smem, st);
+  return launch<0, 0>(xs, ts, os, n, h, w, c, h_out, w_out, factor, ksize, pad_h, pad_w, tile_h,
+                      tile_w, cg, smem, st);
 }

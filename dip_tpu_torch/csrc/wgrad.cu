@@ -26,6 +26,13 @@
 // Numerics: f32 operands, f32 fmaf sums, no TF32 and no bf16 rounding (the
 // class of cuDNN's f32 weight gradient with TF32 off).
 //
+// A fit axis (BatchEngine: B fits, each with its own weight, in one launch;
+// fits = B in `dip_wgrad_f32_fits`): the N images are B runs of N/B, and fit b sums only
+// its own run into its own dW[b], through slabs of its own (a workspace of B
+// x splits slabs; the fit is blockIdx.z) and a sum pass over its own slabs
+// in split order. The split plan is one fit's, so a fit's bits are those of
+// its single-fit launch, as in K3's fit axis (up_conv_wgrad.cu).
+//
 // Bound: the 3x3 at the top of an inpainting 'kate' fit (x (1,514,514,128),
 // g (1,512,512,128)) is 77.3 GFLOP of FMA, 1.15 ms at 67 TFLOP/s, against
 // 269 MB moved: operations. An SM runs 128 FMA a clock but reads 32
@@ -98,8 +105,9 @@ enum Copy { VEC16 = 0, ELEM = 1, PLANAR4 = 2, PLANAR2 = 3, PLANAR1 = 4 };
 struct Geo {
   int h, w, hx, wx, ci, co, halo, ld;
   long long xs0, xs1, xs2, xs3, gs0, gs1, gs2, gs3;
-  int tiles_w, per_img, tiles, per, tiles_k;
+  int tiles_w, per_img, tiles, per, tiles_k;  // tiles: a fit's
   int x_copy, g_copy;  // Copy
+  long long x_fit, g_fit;  // elements from one fit's first image to the next fit's
 };
 
 template <int NT, int RK, bool XPL, bool GPL>
@@ -217,16 +225,20 @@ __device__ __forceinline__ void unpack4(const float* p, float* out) {
 }
 
 // Block (blockIdx.x = (channel tile * tiles_k + column tile) * NT + d,
-// split blockIdx.y) sums pixel tiles [split * per, min((split + 1) * per,
-// tiles)) of taps (d, 0..NT-1) into slab `split` of ws (splits, NT*NT, Ci,
-// ld). Tile t is image t / per_img, row (t % per_img) / tiles_w, columns
-// 64 * (t % tiles_w) ... XPL / GPL: x / g staged channel-planar.
+// split blockIdx.y, fit blockIdx.z) sums its fit's pixel tiles [split *
+// per, min((split + 1) * per, tiles)) of taps (d, 0..NT-1) into slab
+// `split` of the fit's ws (fits, splits, NT*NT, Ci, ld). Tile t of a fit is
+// its image t / per_img, row (t % per_img) / tiles_w, columns 64 * (t %
+// tiles_w) ... XPL / GPL: x / g staged channel-planar.
 template <int NT, int RK, bool XPL, bool GPL>
 __global__ void __launch_bounds__(THREADS, 1)
-wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                 float* __restrict__ ws, Geo q) {
+wgrad_f32_kernel(const float* __restrict__ x_all, const float* __restrict__ g_all,
+                 float* __restrict__ ws_all, Geo q) {
   using T = Tile<NT, RK, XPL, GPL>;
   extern __shared__ __align__(16) float smem[];
+  const float* x = x_all + blockIdx.z * q.x_fit;
+  const float* g = g_all + blockIdx.z * q.g_fit;
+  float* ws = ws_all + (size_t)blockIdx.z * gridDim.y * NT * NT * q.ci * q.ld;
   const int tid = threadIdx.x, tc = tid / TKG, tk = tid % TKG;
   const int d = blockIdx.x % NT, kind = blockIdx.x / NT;
   const int k0 = (kind % q.tiles_k) * T::BK, c0 = (kind / q.tiles_k) * BC;
@@ -382,16 +394,19 @@ wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// Second pass: dW (taps, Ci, Co) dense = the slabs' sum over rows of pitch
-// ld, in split order, one value a thread.
+// Second pass: each fit's dW (taps, Ci, Co) dense = the sum of its own
+// slabs over rows of pitch ld, in split order, one value a thread; `total`
+// values a fit.
 __global__ void wgrad_sum_kernel(const float* __restrict__ ws, float* __restrict__ dw,
-                                 int splits, int co, int ld, size_t total) {
+                                 int splits, int co, int ld, size_t total, int fits) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const size_t at = i / co * ld + i % co, slab = total / co * ld;
-  float s = ws[at];
+  if (i >= total * fits) return;
+  const size_t fit = i / total, j = i % total, slab = total / co * ld;
+  const float* wf = ws + fit * splits * slab;
+  const size_t at = j / co * ld + j % co;
+  float s = wf[at];
 #pragma unroll 8
-  for (int sp = 1; sp < splits; ++sp) s += ws[(size_t)sp * slab + at];
+  for (int sp = 1; sp < splits; ++sp) s += wf[(size_t)sp * slab + at];
   dw[i] = s;
 }
 
@@ -415,27 +430,68 @@ int copy_of(const void* p, int c, long long s0, long long s1, long long s2, long
 }
 
 template <int NT, int RK, bool XPL, bool GPL>
-int launch(const float* x, const float* g, float* ws, Geo q, int splits, cudaStream_t st) {
+int launch(const float* x, const float* g, float* ws, Geo q, int splits, int fits,
+           cudaStream_t st) {
   using T = Tile<NT, RK, XPL, GPL>;
   cudaError_t err = cudaFuncSetAttribute(wgrad_f32_kernel<NT, RK, XPL, GPL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)T::SMEM);
   if (err != cudaSuccess) return (int)err;
   q.tiles_k = (q.co + T::BK - 1) / T::BK;
-  dim3 grid(((q.ci + BC - 1) / BC) * q.tiles_k * NT, splits);
+  dim3 grid(((q.ci + BC - 1) / BC) * q.tiles_k * NT, splits, fits);
   wgrad_f32_kernel<NT, RK, XPL, GPL><<<grid, THREADS, T::SMEM, st>>>(x, g, ws, q);
   return (int)cudaGetLastError();
 }
 
 template <int NT, int RK>
 int launch_layouts(const float* x, const float* g, float* ws, const Geo& q, int splits,
-                   cudaStream_t st) {
+                   int fits, cudaStream_t st) {
   const bool xpl = q.x_copy >= PLANAR4, gpl = q.g_copy >= PLANAR4;
   if (xpl)
-    return gpl ? launch<NT, RK, true, true>(x, g, ws, q, splits, st)
-               : launch<NT, RK, true, false>(x, g, ws, q, splits, st);
-  return gpl ? launch<NT, RK, false, true>(x, g, ws, q, splits, st)
-             : launch<NT, RK, false, false>(x, g, ws, q, splits, st);
+    return gpl ? launch<NT, RK, true, true>(x, g, ws, q, splits, fits, st)
+               : launch<NT, RK, true, false>(x, g, ws, q, splits, fits, st);
+  return gpl ? launch<NT, RK, false, true>(x, g, ws, q, splits, fits, st)
+             : launch<NT, RK, false, false>(x, g, ws, q, splits, fits, st);
+}
+
+// The N images are `fits` runs of N / fits (fits = 1: one fit
+// of all of them), each summed into a dW of its own, split as one run is.
+// A staging mode that holds for the first fit holds for every fit: a fit's
+// first image lies (N / fits) * s0 elements past the one before, and each
+// mode asks s0 to divide by its run of elements.
+int wgrad_f32(const void* x, const void* g, void* ws, void* dw, int fits, int n, int h, int w,
+              int hx, int wx, int ci, int co, long long xs0, long long xs1, long long xs2,
+              long long xs3, long long gs0, long long gs1, long long gs2, long long gs3, int ks,
+              int halo, int splits, int per, int ld, void* stream) {
+  if (fits < 1 || fits > 65535 || n < 1 || n % fits) return (int)cudaErrorInvalidValue;
+  const int n_fit = n / fits;
+  const long long tiles = (long long)n_fit * h * ((w + TW - 1) / TW);
+  const bool shape_ok = ks == 3 ? (halo == 0 || halo == 1) && hx == h + 2 - 2 * halo &&
+                                      wx == w + 2 - 2 * halo
+                                : ks == 1 && halo == 0 && hx == h && wx == w;
+  if (!shape_ok || h < 1 || w < 1 || ci < 1 || co < 1 || splits < 1 || per < 1 ||
+      ld < co || ld % 4 || tiles > INT32_MAX || (long long)splits * per < tiles ||
+      !aligned(ws, 16) || !aligned(dw, 16))
+    return (int)cudaErrorInvalidValue;
+  Geo q{h, w, hx, wx, ci, co, halo, ld, xs0, xs1, xs2, xs3, gs0, gs1, gs2, gs3,
+        (w + TW - 1) / TW, h * ((w + TW - 1) / TW), (int)tiles, per, 0,
+        copy_of(x, ci, xs0, xs1, xs2, xs3, halo), copy_of(g, co, gs0, gs1, gs2, gs3, 0),
+        n_fit * xs0, n_fit * gs0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+  float* wsf = static_cast<float*>(ws);
+  const bool narrow = co <= 16;
+  const int rc = ks == 3 ? (narrow ? launch_layouts<3, 1>(xf, gf, wsf, q, splits, fits, st)
+                                   : launch_layouts<3, 4>(xf, gf, wsf, q, splits, fits, st))
+                         : (narrow ? launch_layouts<1, 1>(xf, gf, wsf, q, splits, fits, st)
+                                   : launch_layouts<1, 8>(xf, gf, wsf, q, splits, fits, st));
+  if (rc != 0) return rc;
+  const size_t total = (size_t)ks * ks * ci * co;
+  const int threads = 256;
+  wgrad_sum_kernel<<<(unsigned)((total * fits + threads - 1) / threads), threads, 0, st>>>(
+      wsf, static_cast<float*>(dw), splits, co, ld, total, fits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -443,40 +499,19 @@ int launch_layouts(const float* x, const float* g, float* ws, const Geo& q, int 
 // -- C interface ---------------------------------------------------------------
 // Launches on `stream`, does not synchronise, allocates nothing, returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes the
-// kernel does not take or splits that do not cover the N*H*ceil(W/64) pixel
-// tiles. x and g are f32 with any element strides; dw is (ks, ks, ci, co)
-// f32, dense; ws holds splits * ks*ks * ci * ld floats, ld = co rounded up
-// to 4; split s sums tiles [s * per, (s + 1) * per). The plan is
-// hopper_wgrad.f32_plan.
-extern "C" int dip_wgrad_f32(const void* x, const void* g, void* ws, void* dw, int n, int h,
-                             int w, int hx, int wx, int ci, int co, long long xs0, long long xs1,
-                             long long xs2, long long xs3, long long gs0, long long gs1,
-                             long long gs2, long long gs3, int ks, int halo, int splits, int per,
-                             int ld, void* stream) {
-  const long long tiles = (long long)n * h * ((w + TW - 1) / TW);
-  const bool shape_ok = ks == 3 ? (halo == 0 || halo == 1) && hx == h + 2 - 2 * halo &&
-                                      wx == w + 2 - 2 * halo
-                                : ks == 1 && halo == 0 && hx == h && wx == w;
-  if (!shape_ok || n < 1 || h < 1 || w < 1 || ci < 1 || co < 1 || splits < 1 || per < 1 ||
-      ld < co || ld % 4 || tiles > INT32_MAX || (long long)splits * per < tiles ||
-      !aligned(ws, 16) || !aligned(dw, 16))
-    return (int)cudaErrorInvalidValue;
-  Geo q{h, w, hx, wx, ci, co, halo, ld, xs0, xs1, xs2, xs3, gs0, gs1, gs2, gs3,
-        (w + TW - 1) / TW, h * ((w + TW - 1) / TW), (int)tiles, per, 0,
-        copy_of(x, ci, xs0, xs1, xs2, xs3, halo), copy_of(g, co, gs0, gs1, gs2, gs3, 0)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* gf = static_cast<const float*>(g);
-  float* wsf = static_cast<float*>(ws);
-  const bool narrow = co <= 16;
-  const int rc = ks == 3 ? (narrow ? launch_layouts<3, 1>(xf, gf, wsf, q, splits, st)
-                                   : launch_layouts<3, 4>(xf, gf, wsf, q, splits, st))
-                         : (narrow ? launch_layouts<1, 1>(xf, gf, wsf, q, splits, st)
-                                   : launch_layouts<1, 8>(xf, gf, wsf, q, splits, st));
-  if (rc != 0) return rc;
-  const size_t total = (size_t)ks * ks * ci * co;
-  const int threads = 256;
-  wgrad_sum_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
-      wsf, static_cast<float*>(dw), splits, co, ld, total);
-  return (int)cudaGetLastError();
+// kernel does not take or splits that do not cover one fit's
+// (N / fits)*H*ceil(W/64) pixel tiles. x and g are f32 with any element
+// strides, their N images `fits` runs of N / fits (fits = 1: one fit of all
+// of them); dw is (fits, ks, ks, ci, co) f32, dense, fit b summing its own
+// run only; ws holds fits * splits * ks*ks * ci * ld floats, ld = co rounded
+// up to 4; split s sums a run's tiles [s * per, (s + 1) * per). The plan is
+// hopper_wgrad.f32_plan of N / fits images, so a fit's bits are those of a
+// launch on its own run alone.
+extern "C" int dip_wgrad_f32_fits(const void* x, const void* g, void* ws, void* dw, int fits,
+                                  int n, int h, int w, int hx, int wx, int ci, int co,
+                                  long long xs0, long long xs1, long long xs2, long long xs3,
+                                  long long gs0, long long gs1, long long gs2, long long gs3,
+                                  int ks, int halo, int splits, int per, int ld, void* stream) {
+  return wgrad_f32(x, g, ws, dw, fits, n, h, w, hx, wx, ci, co, xs0, xs1, xs2, xs3, gs0, gs1,
+                   gs2, gs3, ks, halo, splits, per, ld, stream);
 }

@@ -7,10 +7,12 @@ F.conv2d takes without a copy. BatchNorm is always in train mode and keeps
 no running statistics: DIP fits one image, so batch statistics are the
 image's statistics.
 
-Conv, TrainBatchNorm, `act` and the crops take row blocks (ops/rows.Rows)
-where they take a tensor, for parallel/spatial.py: a padded conv reads its
-halo rows from the neighbouring blocks, and BN's moments sum over all of
-them.
+Conv (its Lanczos post-down included), ConvTranspose, TrainBatchNorm,
+InstanceNorm, GenNoise, `act` and the crops take row blocks (ops/rows.Rows)
+where they take a tensor, for parallel/spatial.py: a padded conv and a
+transposed conv read their halo rows from the neighbouring blocks, the
+norms' moments sum over all of them, and the noise is drawn for the whole
+image and cut into the blocks' rows.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from dip_tpu_torch.ops import hopper_wgrad
 from dip_tpu_torch.ops.pad import _MODES, pad2d
 from dip_tpu_torch.ops.resample import avg_pool, downsample, max_pool
-from dip_tpu_torch.ops.rows import Rows, cat_channels, halo_blocks
+from dip_tpu_torch.ops.rows import Rows, cat_channels, cut_rows, gather_rows, halo_blocks
 from dip_tpu_torch.ops.up_conv import Up2, up2_conv3x3, up2_moments
 
 # which convs take their weight gradient from the Hopper kernels (the JAX
@@ -149,7 +151,16 @@ class InstanceNorm(nn.Module):
         super().__init__()
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | Rows):
+        if isinstance(x, Rows):
+            # the blocks' sums, added on block 0's device: the mean, then the
+            # centred second moment, each (N, 1, 1, C)
+            n, h, w, c = x.shape
+            xf = x.to(torch.float32)
+            mean = (xf.sum((1, 2)) / (h * w)).view(n, 1, 1, c)
+            d = xf - mean
+            var = ((d * d).sum((1, 2)) / (h * w)).view(n, 1, 1, c)
+            return (d * torch.rsqrt(var + self.eps)).to(x.dtype)
         xf = x.float()
         var, mean = torch.var_mean(xf, dim=(1, 2), correction=0, keepdim=True)
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
@@ -280,7 +291,7 @@ class Conv(nn.Module):
             y = max_pool(y, self.stride)
         elif self.post_down:
             # the downsample kernel takes f32
-            y = downsample(y.float(), self.stride, self.post_down, 0.5, True).to(y.dtype)
+            y = downsample(y.to(torch.float32), self.stride, self.post_down, 0.5, True).to(y.dtype)
         return y
 
 
@@ -302,10 +313,34 @@ class ConvTranspose(nn.Module):
         w = self.weight
         torch_conv_init_(w, self.bias, generator, w.shape[0] * w.shape[2] * w.shape[3])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | Rows):
+        if isinstance(x, Rows):
+            return self._rows(x)
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride,
                                self.padding)
         return y.permute(0, 2, 3, 1)
+
+    def _rows(self, x: Rows) -> Rows:
+        """Over row blocks. Output row o sums input rows i with o = i*s - p + t,
+        t < K. Block k owns output rows [s*start_k, s*start_{k+1}), the last
+        block up to the output's height ((H-1)*s - 2p + K: the 3x3 stride-1
+        stem's 2 extra rows go to it). A block gathers the input rows its
+        output rows read, zero past the image, runs the transposed conv on
+        them unpadded along H, and cuts the rows it owns."""
+        s, p, k = self.stride, self.padding, self.weight.shape[2]
+        h_out = (x.shape[1] - 1) * s - 2 * p + k
+        ends = [s * st for st in x.starts[1:]] + [h_out]
+        blocks = []
+        for j, blk in enumerate(x.blocks):
+            a, b = s * x.starts[j], ends[j]
+            lo, hi = -(-(a + p - k + 1) // s), (b - 1 + p) // s + 1
+            xr = gather_rows(x, j, lo, hi, "constant")
+            dev = xr.device
+            y = F.conv_transpose2d(xr.permute(0, 3, 1, 2), self.weight.to(dev),
+                                   None if self.bias is None else self.bias.to(dev), s, (0, p))
+            cut = a - lo * s + p
+            blocks.append(y.permute(0, 2, 3, 1)[:, cut:cut + b - a])
+        return Rows(blocks)
 
 
 class GenNoise(nn.Module):
@@ -316,8 +351,14 @@ class GenNoise(nn.Module):
         super().__init__()
         self.features = features
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | Rows, generator: torch.Generator):
+        """Over row blocks: the whole image's noise, drawn on block 0's device
+        as the unsharded op draws it, cut into the blocks' rows."""
         n, h, w, _ = x.shape
+        if isinstance(x, Rows):
+            noise = torch.randn((n, h, w, self.features), generator=generator,
+                                device=x.blocks[0].device, dtype=x.dtype)
+            return cut_rows(noise, x.devices, x.heights)
         return torch.randn((n, h, w, self.features), generator=generator, device=x.device,
                            dtype=x.dtype)
 
@@ -346,7 +387,4 @@ def crop_to_min(tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
 
 
 def concat_cropped(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    parts = crop_to_min(tensors)
-    if isinstance(parts[0], Rows):
-        return cat_channels(parts)
-    return torch.cat(parts, dim=-1)
+    return cat_channels(crop_to_min(tensors))

@@ -5,18 +5,20 @@ A 3x3 stride-1 transposed-conv stem, (num_ups - 3) 2x stages (a 4x4
 stride-2 transposed conv, or an upsample then a 3x3 conv), each with BN
 and LeakyReLU, and a last 2x stage to the output channels; an optional
 sigmoid. No layer has a bias. LeakyReLU's slope is 0.01, the intended
-one: the reference passes True as the slope (1.0, the identity).
+one: the reference passes True as the slope (1.0, the identity). Every
+op takes row blocks (ops/rows.Rows) where it takes a tensor
+(SpatialEngine); the stem's 2 extra rows go to the last block.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from dip_tpu_torch.models.blocks import (Conv, ConvTranspose, TrainBatchNorm, check_conv_wgrad,
                                          reset_parameters_)
 from dip_tpu_torch.ops.resample import upsample
+from dip_tpu_torch.ops.rows import leaky_relu, sigmoid
 
 
 class DCGAN(nn.Module):
@@ -45,7 +47,7 @@ class DCGAN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         wgrad = check_conv_wgrad(self.conv_wgrad)
-        h = F.leaky_relu(self.bns[0](self.stem(x)), 0.01)
+        h = leaky_relu(self.bns[0](self.stem(x)), 0.01)
         last = len(self.ups) - 1
         for i, layer in enumerate(self.ups):
             if self.need_convT:
@@ -54,8 +56,8 @@ class DCGAN(nn.Module):
                 h = upsample(h, 2, "bilinear" if i == last else self.upsample_mode)
                 h = layer(h, conv_wgrad=wgrad)
             if i < last:
-                h = F.leaky_relu(self.bns[i + 1](h), 0.01)
-        return torch.sigmoid(h) if self.need_sigmoid else h
+                h = leaky_relu(self.bns[i + 1](h), 0.01)
+        return sigmoid(h) if self.need_sigmoid else h
 
 
 def dcgan(inp: int = 2, **kwargs) -> DCGAN:

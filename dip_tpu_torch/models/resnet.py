@@ -4,7 +4,8 @@ A stem conv and activation; `num_blocks` residual blocks of [3x3 conv
 without bias, norm, act, 3x3 conv without bias, norm] plus the block's
 input; a 3x3 conv and norm neck; a 3x3 conv head and a sigmoid. As in the
 JAX package this is the configuration the reference intended: its
-get_net passes a norm class as the activation and would crash.
+get_net passes a norm class as the activation and would crash. Every op
+takes row blocks (ops/rows.Rows) where it takes a tensor (SpatialEngine).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from dip_tpu_torch.models.blocks import Conv, act, check_conv_wgrad, norm, reset_parameters_
+from dip_tpu_torch.ops.rows import sigmoid
 
 
 class _ResBlock(nn.Module):
@@ -61,4 +63,4 @@ class ResNet(nn.Module):
             h = block(h, wgrad)
         h = self.neck_norm(self.neck(h, conv_wgrad=wgrad))
         h = self.head(h, conv_wgrad=wgrad)
-        return torch.sigmoid(h) if self.need_sigmoid else h
+        return sigmoid(h) if self.need_sigmoid else h

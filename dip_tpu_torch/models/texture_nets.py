@@ -6,7 +6,9 @@ One branch per pyramid ratio: the avg-pooled input (or, with
 Branches merge coarse to fine: each merge batch-norms both sides, concats
 them, runs three conv-BN-act stages and upsamples, until the finest level
 emits the output conv. Padding is the intended integer padding (the
-reference's float padding crashes under Python 3).
+reference's float padding crashes under Python 3). Every op takes row
+blocks (ops/rows.Rows) where it takes a tensor (SpatialEngine); the noise
+is drawn for the whole image and cut into the blocks' rows.
 
 Convs and BNs are created in the flax module's order, so `convs.{i}` is
 flax's `Conv_{i}` and `bns.{i}` its `TrainBatchNorm_{i}`.
@@ -22,6 +24,7 @@ import torch.nn as nn
 from dip_tpu_torch.models.blocks import (Conv, GenNoise, TrainBatchNorm, act, check_conv_wgrad,
                                          concat_cropped, reset_parameters_)
 from dip_tpu_torch.ops.resample import avg_pool, upsample
+from dip_tpu_torch.ops.rows import sigmoid
 
 
 class TextureNet(nn.Module):
@@ -91,7 +94,7 @@ class TextureNet(nn.Module):
                 cur = next(convs)(m, conv_wgrad=wgrad)
             else:
                 cur = upsample(m, 2, self.upsample_mode)
-        return torch.sigmoid(cur) if self.need_sigmoid else cur
+        return sigmoid(cur) if self.need_sigmoid else cur
 
 
 def get_texture_nets(inp: int = 3, **kwargs) -> TextureNet:

@@ -7,6 +7,9 @@ conv; `concat_x` concats the avg-pooled input at every depth, and
 `more_layers` adds deeper scales of the widest width (the reference
 crashes there; the JAX package and this port implement the intent).
 
+Every op takes row blocks (ops/rows.Rows) where it takes a tensor, so
+parallel/spatial.py's SpatialEngine runs this forward over them.
+
 The submodules are registered in the order the flax module creates its
 own, so interop.flax_paths maps one onto the other by class and index.
 """
@@ -15,11 +18,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from dip_tpu_torch.models.blocks import (Conv, ConvTranspose, check_conv_wgrad,
                                          concat_cropped, norm, reset_parameters_)
 from dip_tpu_torch.ops.resample import avg_pool, max_pool, upsample
+from dip_tpu_torch.ops.rows import cat_channels, relu, sigmoid
 
 
 class _DoubleConv(nn.Module):
@@ -34,7 +37,7 @@ class _DoubleConv(nn.Module):
 
     def forward(self, x: torch.Tensor, conv_wgrad: str) -> torch.Tensor:
         for conv, nrm in zip(self.convs, self.norms):
-            x = F.relu(nrm(conv(x, conv_wgrad=conv_wgrad)))
+            x = relu(nrm(conv(x, conv_wgrad=conv_wgrad)))
         return x
 
 
@@ -117,7 +120,7 @@ class UNet(nn.Module):
 
         def down(i, block, h):
             h = block(h, wgrad)
-            return torch.cat([h, pooled[i]], dim=-1) if self.concat_x else h
+            return cat_channels([h, pooled[i]]) if self.concat_x else h
 
         feats = [down(0, self.down[0], x)]
         for i in range(1, 5):
@@ -132,4 +135,4 @@ class UNet(nn.Module):
         for j, i in enumerate(reversed(range(4))):
             u = self.ups[j](u, feats[i], wgrad)
         out = self.head(u, conv_wgrad=wgrad)
-        return torch.sigmoid(out) if self.need_sigmoid else out
+        return sigmoid(out) if self.need_sigmoid else out

@@ -119,18 +119,18 @@ def load() -> ctypes.CDLL:
     # splits, tiles a split, f32, stream
     lib.dip_wgrad3x3_mma_fits.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
     lib.dip_wgrad1x1_mma_fits.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
-    # x, taps, out, n, h, w, c, h_out, w_out, factor, K, pad, tile_h, tile_w,
-    # channels a block, stream
-    lib.dip_downsample.argtypes = [ptr, ptr, ptr] + [i32] * 12 + [ptr]
+    # x, taps, out, n, h, w, c, h_out, w_out, factor, K, row pad, column pad,
+    # tile_h, tile_w, channels a block, stream
+    lib.dip_downsample.argtypes = [ptr, ptr, ptr] + [i32] * 13 + [ptr]
     # x, out, n, h/2, w/2, c, x's 4 strides, in f32, out f32, stream
     lib.dip_s2d_pack.argtypes = [ptr, ptr] + [i32] * 4 + [i64] * 4 + [i32] * 2 + [ptr]
-    # x, g, workspace, dW, n, h, w, hx, wx, ci, co, x's and g's 4 strides,
-    # ks, halo, splits, tiles a split, slab row pitch, stream
-    lib.dip_wgrad_f32.argtypes = [ptr] * 4 + [i32] * 7 + [i64] * 8 + [i32] * 5 + [ptr]
+    # x, g, workspace, dW, fits, n, h, w, hx, wx, ci, co, x's and g's 4
+    # strides, ks, halo, splits, tiles a split, slab row pitch, stream
+    lib.dip_wgrad_f32_fits.argtypes = [ptr] * 4 + [i32] * 8 + [i64] * 8 + [i32] * 5 + [ptr]
     for fn in (lib.dip_up_conv_fwd, lib.dip_up_conv_dgrad, lib.dip_up_conv_wgrad,
                lib.dip_wgrad3x3_mma, lib.dip_wgrad1x1_mma, lib.dip_wgrad3x3_mma_fits,
                lib.dip_wgrad1x1_mma_fits, lib.dip_downsample,
-               lib.dip_s2d_pack, lib.dip_wgrad_f32):
+               lib.dip_s2d_pack, lib.dip_wgrad_f32_fits):
         fn.restype = i32
     _lib = lib
     return lib

@@ -2,12 +2,16 @@
 dip_tpu/ops/pallas_resample.py's `downsample_fused`).
 
 The kernel lives in `csrc/resample.cu` (built at first use by
-ops/_build.py). It takes the unpadded NHWC f32 input and the f32 profile
-taps. Each block stages its input window (the replication pre-pad folded
-into clamped indices) in shared memory once, then runs the H pass and the
-strided W pass from there:
+ops/_build.py). It takes the unpadded NHWC f32 input, the f32 profile
+taps, and a row pad p_h and a column pad p_w of their own. Each block
+stages its input window (the replication pre-pad folded into clamped
+indices) in shared memory once, then runs the H pass and the strided W
+pass from there:
 
-  out[n, o, q, c] = sum_{i,j} k[i] k[j] x[n, clamp(o*f + i - p), clamp(q*f + j - p), c]
+  out[n, o, q, c] = sum_{i,j} k[i] k[j] x[n, clamp(o*f + i - p_h), clamp(q*f + j - p_w), c]
+
+A row block of a sharded fit (ops/resample.py's `downsample` over Rows)
+brings its halo rows with it and runs at p_h = 0, p_w = p.
 
 Its plain version is ops/resample.py's `downsample_plain`. This wrapper
 takes CUDA tensors only and raises on anything else; each launch adds one
@@ -107,10 +111,11 @@ def tile_plan(ksize: int, factor: int, n: int, c: int, h_out: int, w_out: int) -
     return most
 
 
-def downsample_fused(x: torch.Tensor, taps: torch.Tensor, factor: int, pad: int,
-                     h_out: int, w_out: int) -> torch.Tensor:
+def downsample_fused(x: torch.Tensor, taps: torch.Tensor, factor: int,
+                     pad: int | tuple[int, int], h_out: int, w_out: int) -> torch.Tensor:
     """x (N,H,W,C) f32 contiguous on a CUDA device, taps (K,) f32 on the
-    same device -> (N, h_out, w_out, C) f32."""
+    same device, `pad` one pre-pad for both axes or (row pad, column pad)
+    -> (N, h_out, w_out, C) f32."""
     if x.device.type != "cuda" or taps.device != x.device:
         raise ValueError(f"downsample kernel needs x and taps on one CUDA device, got "
                          f"{x.device} and {taps.device}")
@@ -121,17 +126,18 @@ def downsample_fused(x: torch.Tensor, taps: torch.Tensor, factor: int, pad: int,
                          f"{tuple(x.shape)} and {tuple(taps.shape)}")
     n, h, w, c = x.shape
     ksize = taps.shape[0]
-    if (h + 2 * pad - ksize) // factor + 1 != h_out or (
-            w + 2 * pad - ksize) // factor + 1 != w_out or h_out < 1 or w_out < 1:
+    pad_h, pad_w = (pad, pad) if isinstance(pad, int) else pad
+    if (h + 2 * pad_h - ksize) // factor + 1 != h_out or (
+            w + 2 * pad_w - ksize) // factor + 1 != w_out or h_out < 1 or w_out < 1:
         raise ValueError(f"bad downsample geometry: {tuple(x.shape)}, K={ksize}, "
-                         f"f={factor}, p={pad} -> {h_out}x{w_out}")
+                         f"f={factor}, pads=({pad_h}, {pad_w}) -> {h_out}x{w_out}")
     if n > 65535:
         raise ValueError(f"downsample grid too large for N={n}")
     plan = tile_plan(ksize, factor, n, c, h_out, w_out)
     out = torch.empty((n, h_out, w_out, c), dtype=torch.float32, device=x.device)
     rc = _build.load().dip_downsample(
         x.data_ptr(), taps.data_ptr(), out.data_ptr(), n, h, w, c, h_out, w_out,
-        factor, ksize, pad, plan.tile_h, plan.tile_w, plan.cg, _build.stream())
+        factor, ksize, pad_h, pad_w, plan.tile_h, plan.tile_w, plan.cg, _build.stream())
     _build.raise_on(rc, "downsample")
     LAUNCHES["downsample"] += 1
     return out

@@ -23,9 +23,10 @@ Routing on CUDA tensors:
         the 3x3's x is padded by one zero pixel for halo=1 (`_k5_operands`),
         the 1x1's channels to a multiple of 8 (`_pad8`: the 3-channel head's
         g would otherwise take the kernel's slow masked staging).
-  f32   both run `csrc/wgrad.cu` (`dip_wgrad_f32`, split as `f32_plan`
-        says): register-tiled SIMT FMA over staged windows, which takes the
-        inputs' element strides, so nothing is copied first.
+  f32   both run `csrc/wgrad.cu` (`dip_wgrad_f32_fits` with one fit,
+        split as `f32_plan` says): register-tiled SIMT FMA over staged
+        windows, which takes the inputs' element strides, so nothing is
+        copied first.
 
 `Conv3x3S1` and `Conv1x1` are the counterparts of `_conv3x3_s1p1` and
 `_conv1x1`: forward F.conv2d (cuDNN), data gradient cuDNN's
@@ -37,11 +38,11 @@ it launches the kernel or raises. Each launch adds one to `LAUNCHES`.
 The fit axis (parallel/batch.py's BatchEngine, B fits each with its own
 weight): both wrappers take `fits` = B, x and g then holding B runs of
 N/B images, and give dW (B,k,k,Ci,Co), fit b's summed over its own run
-only. In bf16 one launch serves the B fits (`dip_wgrad3x3_mma_fits`,
-`dip_wgrad1x1_mma_fits`: K3's per-fit slabs and sum pass, a fit's split
-plan, so a fit's bits are those of its single-fit launch); in f32 the
-wrapper launches the f32 kernel once a fit, on each fit's slice as it
-lies (`csrc/wgrad.cu` has no fit axis), and counts B launches. Under
+only. One launch serves the B fits in either dtype, with per-fit slabs
+and sum pass and a fit's split plan, so a fit's bits are those of its
+single-fit launch: in bf16 `dip_wgrad3x3_mma_fits` and
+`dip_wgrad1x1_mma_fits` (K3's), in f32 `dip_wgrad_f32_fits` (the fit the
+grid's third dimension, x and g read as they lie). Under
 torch.func.vmap the Functions' vmap rules fold the fits into N where the
 weight is shared, and run `ConvFits` where it is batched: the forward and
 the data gradient grouped cuDNN convolutions (groups = B, as BatchEngine's
@@ -163,19 +164,23 @@ def f32_plan(n: int, h: int, w: int, ci: int, co: int, ks: int) -> F32Plan:
                    (splits, ks * ks, ci, -(-co // 4) * 4))
 
 
-def _launch_f32(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int) -> torch.Tensor:
-    """The f32 kernel on x and g as they lie (their strides are passed)."""
+def _launch_f32(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int,
+                fits: int | None = None) -> torch.Tensor:
+    """The f32 kernel on x and g as they lie (their strides are passed),
+    through the fit-axis entry: with `fits`, one launch for the fits, each
+    split as one fit's images are; without, one fit of all the images."""
     n, h, w, co = g.shape
     ci = x.shape[3]
-    plan = f32_plan(n, h, w, ci, co, ks)
-    ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
-    dw = torch.empty((ks, ks, ci, co), dtype=torch.float32, device=x.device)
-    rc = _build.load().dip_wgrad_f32(
-        x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, w, x.shape[1],
+    b = 1 if fits is None else fits
+    plan = f32_plan(n // b, h, w, ci, co, ks)
+    ws = torch.empty((b, *plan.workspace), dtype=torch.float32, device=x.device)
+    dw = torch.empty((b, ks, ks, ci, co), dtype=torch.float32, device=x.device)
+    rc = _build.load().dip_wgrad_f32_fits(
+        x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), b, n, h, w, x.shape[1],
         x.shape[2], ci, co, *x.stride(), *g.stride(), ks, halo, plan.splits,
         plan.tiles_per_split, plan.workspace[3], _build.stream())
     _build.raise_on(rc, f"wgrad {ks}x{ks} f32")
-    return dw
+    return dw if fits is not None else dw[0]
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
@@ -235,18 +240,12 @@ def _launch_mma(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int,
 
 def _launch(x: torch.Tensor, g: torch.Tensor, ks: int, halo: int, fits: int | None,
             name: str) -> torch.Tensor:
-    """The kernel for x's dtype, its launches counted under `name`: one in
-    bf16, one a fit in f32 (the f32 kernel has no fit axis)."""
-    if x.dtype == torch.bfloat16 or fits is None:
-        dw = (_launch_mma(x, g, ks, halo, fits) if x.dtype == torch.bfloat16
-              else _launch_f32(x, g, ks, halo))
-        LAUNCHES[name] += 1
-        return dw
-    dws = []
-    for xb, gb in zip(x.chunk(fits), g.chunk(fits)):
-        dws.append(_launch_f32(xb, gb, ks, halo))
-        LAUNCHES[name] += 1
-    return torch.stack(dws)
+    """The kernel for x's dtype, one launch (for all the fits with `fits`)
+    counted under `name`."""
+    launch = _launch_mma if x.dtype == torch.bfloat16 else _launch_f32
+    dw = launch(x, g, ks, halo, fits)
+    LAUNCHES[name] += 1
+    return dw
 
 
 def wgrad3x3_s1(x: torch.Tensor, g: torch.Tensor, halo: int = 1,
@@ -378,7 +377,7 @@ class ConvFits(torch.autograd.Function):
     (1 pads with zeros, 0 takes x padded; a 1x1 conv passes 1 and pads
     nothing) -> (B*N, H, W, Co). Forward and data gradient: one grouped
     cuDNN convolution each (groups = B); weight gradient: K5 or K6 with the
-    fit axis (one launch in bf16, one a fit in f32)."""
+    fit axis (one launch for the B fits)."""
 
     @staticmethod
     def forward(x: torch.Tensor, weight: torch.Tensor, halo: int) -> torch.Tensor:

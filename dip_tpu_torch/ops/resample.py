@@ -1,9 +1,10 @@
 """Spatial resampling of NHWC tensors (counterpart of dip_tpu/ops/resample.py
 and dip_tpu/ops/pallas_resample.py).
 
-`upsample` is the decoder's 2x resize; it and the pools take row blocks
-(ops/rows.Rows) too. `downsample` is the anti-aliased
-downsampler, the differentiable degradation operator of super-resolution:
+`upsample` is the decoder's 2x resize; it, the pools and `downsample`
+take row blocks (ops/rows.Rows) too. `downsample` is the anti-aliased
+downsampler, the differentiable degradation operator of super-resolution
+and the Lanczos post-down of a Conv:
 
   - kernel construction (`resample_kernel_1d`, `resample_kernel_2d`) is
     host numpy in float64, as in the JAX package. Every family it supports
@@ -11,11 +12,17 @@ downsampler, the differentiable degradation operator of super-resolution:
     product of one 1-D profile;
   - `downsample_plain` is the replication pre-pad followed by two banded
     f32 products, y = S_h . X . S_w^T per channel, where the band matrix
-    S[o, i] = k[i - o*f] is the stride-f correlation with the profile k;
+    S[o, i] = k[i - o*f] is the stride-f correlation with the profile k.
+    The rows and the columns take a pad each (`pads`): a row block brings
+    its own halo rows and is padded along W only;
   - `downsample` is the public, differentiable op. On CPU tensors its
     forward is `downsample_plain`; on a CUDA tensor it launches the Hopper
     kernel (ops/hopper_resample.py) or raises. Its backward is PyTorch on
     both devices, as the JAX package computes this backward with XLA.
+    Over row blocks, each block gathers the rows its output rows read
+    (`gather_rows` in 'replicate' mode: the halo from its neighbours, the
+    replication pad itself at the image's true top and bottom) and runs
+    the op with row pad 0.
 
 The profile taps and the band matrices are built once per configuration,
 length, dtype and device and kept there (ops/consts.py).
@@ -189,18 +196,25 @@ def _spec(factor, kernel_type, phase, kernel_width, support, sigma) -> tuple:
     return (int(factor), kernel_type, float(phase), kernel_width, support, sigma)
 
 
-def _geometry(shape, spec: tuple, preserve_size: bool) -> tuple[int, int, int]:
-    """(pad, h_out, w_out); raises if the output would be empty."""
+def _out_size(shape, spec: tuple, pads: tuple[int, int]) -> tuple[int, int]:
+    """(h_out, w_out) under the row and column pads; raises if the output
+    would be empty."""
     if len(shape) != 4:
         raise ValueError(f"NHWC input expected, got shape {tuple(shape)}")
     ksize, factor = _profile(spec).shape[0], spec[0]
-    p = pad_width(ksize, factor, preserve_size)
-    h_out = (shape[1] + 2 * p - ksize) // factor + 1
-    w_out = (shape[2] + 2 * p - ksize) // factor + 1
+    h_out = (shape[1] + 2 * pads[0] - ksize) // factor + 1
+    w_out = (shape[2] + 2 * pads[1] - ksize) // factor + 1
     if h_out < 1 or w_out < 1:
         raise ValueError(f"downsample of {tuple(shape)} by {factor} with a {ksize}-tap "
-                         f"kernel (pad {p}) is empty")
-    return p, h_out, w_out
+                         f"kernel (pads {pads}) is empty")
+    return h_out, w_out
+
+
+def _geometry(shape, spec: tuple, preserve_size: bool) -> tuple[int, int, int]:
+    """(pad, h_out, w_out), one pad on both axes; raises if the output would
+    be empty."""
+    p = pad_width(_profile(spec).shape[0], spec[0], preserve_size)
+    return (p, *_out_size(shape, spec, (p, p)))
 
 
 # -- plain version and the differentiable op ------------------------------------------
@@ -209,12 +223,17 @@ def _geometry(shape, spec: tuple, preserve_size: bool) -> tuple[int, int, int]:
 def downsample_plain(x: torch.Tensor, factor: int, kernel_type: str = "lanczos2",
                      phase: float = 0.5, preserve_size: bool = False,
                      kernel_width: int | None = None, support: int | None = None,
-                     sigma: float | None = None) -> torch.Tensor:
-    """K7's plain version: replication pre-pad, then S_h . X . S_w^T as two
+                     sigma: float | None = None,
+                     pads: tuple[int, int] | None = None) -> torch.Tensor:
+    """K7's plain version: replication pre-pad by `pads` (rows, columns;
+    default preserve_size's pad on both), then S_h . X . S_w^T as two
     banded products in x's dtype (full f32 for f32: no TF32)."""
     spec = _spec(factor, kernel_type, phase, kernel_width, support, sigma)
-    p, _, _ = _geometry(x.shape, spec, preserve_size)
-    xp = pad2d(x, p, "replication")
+    if pads is None:
+        p = _geometry(x.shape, spec, preserve_size)[0]
+        pads = (p, p)
+    _out_size(x.shape, spec, pads)
+    xp = pad2d(x, pads, "replication")
     s_h = device_const(_band, (spec, xp.shape[1]), x.dtype, x.device)
     s_w = device_const(_band, (spec, xp.shape[2]), x.dtype, x.device)
     y = torch.einsum("oh,nhwc->nowc", s_h, xp)
@@ -223,46 +242,68 @@ def downsample_plain(x: torch.Tensor, factor: int, kernel_type: str = "lanczos2"
 
 class _Downsample(torch.autograd.Function):
     """Forward: the plain version on the CPU, the Hopper kernel on a CUDA
-    tensor. Backward (linear, so independent of x): dX = (S_h P_h)^T . g .
-    (S_w P_w), the adjoint of the banded products with the replication
-    pad's fold built into the cached matrices. Under torch.func.vmap the
-    fits fold into N: one kernel launch for all of them."""
+    tensor, with `pads` = (row pad, column pad). Backward (linear, so
+    independent of x): dX = (S_h P_h)^T . g . (S_w P_w), the adjoint of the
+    banded products with each axis's replication pad's fold built into the
+    cached matrices. Under torch.func.vmap the fits fold into N: one kernel
+    launch for all of them."""
 
     @staticmethod
-    def forward(x: torch.Tensor, spec: tuple, preserve_size: bool) -> torch.Tensor:
-        p, h_out, w_out = _geometry(x.shape, spec, preserve_size)
+    def forward(x: torch.Tensor, spec: tuple, pads: tuple[int, int]) -> torch.Tensor:
+        h_out, w_out = _out_size(x.shape, spec, pads)
         if x.device.type == "cpu":
-            return downsample_plain(x, spec[0], spec[1], spec[2], preserve_size, *spec[3:])
+            return downsample_plain(x, spec[0], spec[1], spec[2], False, *spec[3:], pads=pads)
         taps = device_const(_profile, spec, torch.float32, x.device)
-        return hopper_resample.downsample_fused(x.contiguous(), taps, spec[0], p, h_out, w_out)
+        return hopper_resample.downsample_fused(x.contiguous(), taps, spec[0], pads, h_out,
+                                                w_out)
 
     @staticmethod
     def setup_context(ctx, inputs, output) -> None:
-        x, spec, preserve_size = inputs
-        ctx.spec, ctx.hw = spec, (x.shape[1], x.shape[2])
-        ctx.p = _geometry(x.shape, spec, preserve_size)[0]
+        x, spec, pads = inputs
+        ctx.spec, ctx.hw, ctx.pads = spec, (x.shape[1], x.shape[2]), pads
 
     @staticmethod
-    def vmap(info, in_dims, x, spec, preserve_size):
+    def vmap(info, in_dims, x, spec, pads):
         x = x.movedim(in_dims[0], 0)
-        out = _Downsample.apply(x.reshape(-1, *x.shape[2:]), spec, preserve_size)
+        out = _Downsample.apply(x.reshape(-1, *x.shape[2:]), spec, pads)
         return out.reshape(x.shape[0], -1, *out.shape[1:]), 0
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        (h, w), p = ctx.hw, ctx.p
-        a_h = device_const(_adjoint_band, (ctx.spec, h, p), g.dtype, g.device)
-        a_w = device_const(_adjoint_band, (ctx.spec, w, p), g.dtype, g.device)
+        (h, w), (p_h, p_w) = ctx.hw, ctx.pads
+        a_h = device_const(_adjoint_band, (ctx.spec, h, p_h), g.dtype, g.device)
+        a_w = device_const(_adjoint_band, (ctx.spec, w, p_w), g.dtype, g.device)
         d = torch.einsum("oh,nowc->nhwc", a_h, g)
         return torch.einsum("pw,nhpc->nhwc", a_w, d), None, None
 
 
-def downsample(x: torch.Tensor, factor: int, kernel_type: str = "lanczos2",
+def _downsample_rows(x: Rows, spec: tuple, preserve_size: bool) -> Rows:
+    """downsample over row blocks: block k owns the output rows of its own
+    rows, [start_k / f, end_k / f), which read the pre-padded rows
+    [start_k, end_k - f + K), image rows p before that; it gathers them
+    ('replicate': the halo, or the pre-pad at the image's edge) and runs
+    the op with row pad 0 and column pad p. Needs the even-K preserve-size
+    pad (2p = K - f, the Lanczos post-down's) and block heights that f
+    divides."""
+    ksize, factor = _profile(spec).shape[0], spec[0]
+    p = pad_width(ksize, factor, preserve_size)
+    if 2 * p != ksize - factor or any(h % factor for h in x.heights):
+        raise ValueError(f"row blocks of {x.heights} rows: a {ksize}-tap downsample by "
+                         f"{factor} over row blocks needs a pre-pad of (K - f) / 2 and block "
+                         f"heights that {factor} divides")
+    return Rows([_Downsample.apply(xr, spec, (0, p))
+                 for xr in halo_blocks(x, p, ksize - factor - p, "replicate")])
+
+
+def downsample(x: torch.Tensor | Rows, factor: int, kernel_type: str = "lanczos2",
                phase: float = 0.5, preserve_size: bool = False,
                kernel_width: int | None = None, support: int | None = None,
-               sigma: float | None = None) -> torch.Tensor:
+               sigma: float | None = None):
     """Anti-aliased downsample of NHWC `x` by the integer `factor`:
     optional replication pre-pad, then the stride-`factor` correlation with
     the normalised separable kernel. Differentiable in x."""
     spec = _spec(factor, kernel_type, phase, kernel_width, support, sigma)
-    return _Downsample.apply(x, spec, preserve_size)
+    if isinstance(x, Rows):
+        return _downsample_rows(x, spec, preserve_size)
+    p = _geometry(x.shape, spec, preserve_size)[0]
+    return _Downsample.apply(x, spec, (p, p))

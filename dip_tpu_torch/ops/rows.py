@@ -5,12 +5,14 @@ P(None, 'sp', None, None); parallel/spatial.py's SpatialEngine).
 The model's own forwards take a `Rows` wherever they take a tensor, so a
 sharded fit runs the one definition of every net it can shard:
 
-  - per-pixel work (arithmetic with a per-channel tensor, activations, the
-    head's sigmoid, a crop along W, the 2x2 pools on blocks of even rows)
-    runs on each block, the tensor moved to the block's device;
-  - a sum over N, H, W (BatchNorm's moments) is each block's sum, added in
-    block order on block 0's device: the all-reduce, after which every
-    block normalises with the same mean and variance;
+  - per-pixel work (arithmetic with a per-channel tensor, the activations
+    `relu`, `leaky_relu` and `sigmoid` below, a crop along W, a channel
+    concat `cat_channels`, the pools on blocks whose heights the stride
+    divides) runs on each block, the tensor moved to the block's device;
+  - a sum over H and W (BatchNorm's moments over N, H, W; InstanceNorm's
+    over H, W) is each block's sum, added in block order on block 0's
+    device: the all-reduce, after which every block normalises with the
+    same mean and variance;
   - each op that reads across a block's edge (a padded conv's window, the
     bilinear upsample, the fused seam's edge-padded LR input and its
     reflection corrections, the bilinear up2 moments' neighbour products)
@@ -18,10 +20,16 @@ sharded fit runs the one definition of every net it can shard:
     reads the rows past the block's edge through `gather_rows`: from the
     block that owns them (a halo, whose gradient flows back to its owner
     through `.to()` and `torch.cat`), or as the op pads the image past its
-    true top and bottom.
+    true top and bottom. The transposed conv's and the Lanczos
+    downsample's branches are such ops too;
+  - a value drawn for the whole image (the texture net's noise) is drawn
+    once, as the unsharded op draws it, and cut into the blocks' rows by
+    `cut_rows`.
 
-An op with no such branch raises on a Rows (it is not a tensor) rather
-than computing a block's result without its neighbours.
+Blocks may differ in height (a transposed conv that adds rows gives them
+to the last block). An op with no such branch raises on a Rows (it is not
+a tensor) rather than computing a block's result without its neighbours;
+Rows has no catch-all that would run an op block by block.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import operator
 from typing import Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 class Rows:
@@ -51,6 +60,14 @@ class Rows:
     @property
     def dtype(self) -> torch.dtype:
         return self.blocks[0].dtype
+
+    @property
+    def heights(self) -> list[int]:
+        return [b.shape[1] for b in self.blocks]
+
+    @property
+    def devices(self) -> list[torch.device]:
+        return [b.device for b in self.blocks]
 
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Rows":
         return Rows([fn(b) for b in self.blocks])
@@ -95,19 +112,47 @@ class Rows:
         return torch.cat([b.to(device) for b in self.blocks], dim=1)
 
 
-def cut_rows(x: torch.Tensor, devices: Sequence[torch.device]) -> Rows:
-    """x (N, H, W, C) as len(devices) equal row blocks, block k on
-    devices[k]."""
+def cut_rows(x: torch.Tensor, devices: Sequence[torch.device],
+             heights: Sequence[int] | None = None) -> Rows:
+    """x (N, H, W, C) as row blocks, block k on devices[k]: len(devices)
+    equal blocks, or blocks of `heights` rows (which sum to H)."""
     n = len(devices)
-    if x.shape[1] % n:
-        raise ValueError(f"image height {x.shape[1]} must divide by mesh size {n}")
-    h = x.shape[1] // n
-    return Rows([x[:, k * h:(k + 1) * h].to(d) for k, d in enumerate(devices)])
+    if heights is None:
+        if x.shape[1] % n:
+            raise ValueError(f"image height {x.shape[1]} must divide by mesh size {n}")
+        heights = [x.shape[1] // n] * n
+    if len(heights) != n or sum(heights) != x.shape[1]:
+        raise ValueError(f"row blocks of {list(heights)} rows do not cut {x.shape[1]} rows "
+                         f"over {n} devices")
+    blocks, start = [], 0
+    for h, d in zip(heights, devices):
+        blocks.append(x[:, start:start + h].to(d))
+        start += h
+    return Rows(blocks)
 
 
-def cat_channels(parts: Sequence[Rows]) -> Rows:
-    """The channel concat of row blocks of the same rows."""
-    return Rows([torch.cat(bs, dim=-1) for bs in zip(*(p.blocks for p in parts))])
+def cat_channels(parts: Sequence[torch.Tensor | Rows]):
+    """The channel concat of tensors, or of row blocks of the same rows."""
+    if isinstance(parts[0], Rows):
+        return Rows([torch.cat(bs, dim=-1) for bs in zip(*(p.blocks for p in parts))])
+    return torch.cat(list(parts), dim=-1)
+
+
+def relu(x: torch.Tensor | Rows):
+    """F.relu of a tensor, or of each row block."""
+    return x.map(F.relu) if isinstance(x, Rows) else F.relu(x)
+
+
+def leaky_relu(x: torch.Tensor | Rows, slope: float):
+    """F.leaky_relu of a tensor, or of each row block."""
+    if isinstance(x, Rows):
+        return x.map(lambda b: F.leaky_relu(b, slope))
+    return F.leaky_relu(x, slope)
+
+
+def sigmoid(x: torch.Tensor | Rows):
+    """torch.sigmoid of a tensor, or of each row block."""
+    return x.sigmoid() if isinstance(x, Rows) else torch.sigmoid(x)
 
 
 def allsum(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:

@@ -46,7 +46,7 @@ from dip_tpu.ops import dispatch  # noqa: E402
 from dip_tpu.ops.losses import mse as jmse  # noqa: E402
 from dip_tpu_torch import interop  # noqa: E402
 from dip_tpu_torch.fit import engine as teng  # noqa: E402
-from dip_tpu_torch.models import Skip, UNet  # noqa: E402
+from dip_tpu_torch.models import DCGAN, Skip, UNet  # noqa: E402
 from dip_tpu_torch.models.blocks import Conv, TrainBatchNorm, concat_cropped  # noqa: E402
 from dip_tpu_torch.ops.losses import mse  # noqa: E402
 from dip_tpu_torch.ops.pad import pad2d  # noqa: E402
@@ -343,7 +343,7 @@ import jax; jax.config.update('jax_platforms', 'cpu')
 import jax.numpy as jnp, numpy as np, sys
 from flax import traverse_util
 from dip_tpu.fit.engine import FitConfig
-from dip_tpu.models import Skip
+from dip_tpu.models import Skip, UNet
 from dip_tpu.ops import dispatch
 from dip_tpu.ops.losses import mse
 from dip_tpu.parallel.spatial import SpatialEngine, make_spatial_mesh
@@ -356,37 +356,145 @@ with dispatch.override(up_conv='off'):
     init = traverse_util.flatten_dict(jax.tree_util.tree_map(np.asarray, s.params['net']),
                                       sep='/')
     loss = e.run(s, jnp.asarray(d['t']))[1]['loss']
-np.savez(sys.argv[2], loss=loss, **{'p/' + k: v for k, v in init.items()})
+# the nets of GIVEN from the given weights: each init returns them (a jitted
+# flax init of a UNet compiles for over a minute on one core); convs as XLA
+# conv ops, the seam off
+from dip_tpu.models import DCGAN
+losses = {}
+for tag, (cls, kw, _) in GIVEN.items():
+    net = {'UNet': UNet, 'DCGAN': DCGAN, 'Skip': Skip}[cls](**kw)
+    pre = tag + '/w/'
+    given = traverse_util.unflatten_dict(
+        {k[len(pre):]: d[k] for k in d.files if k.startswith(pre)}, sep='/')
+
+    class Given:
+        def init(self, rngs, x, given=given):
+            return {'params': given}
+
+        def apply(self, *args, net=net, **kw):
+            return net.apply(*args, **kw)
+
+    e = SpatialEngine(net, lambda p, o, a: mse(o, a),
+                      FitConfig(num_iter=2, lr=0.01, log_every=2, conv_impl='conv',
+                                up_conv='off'),
+                      mesh=make_spatial_mesh(2))
+    e.engine.model = Given()
+    s = e.init_state(jax.random.key(1), jnp.asarray(d[tag + '/z']))
+    losses['l/' + tag] = e.run(s, jnp.asarray(d[tag + '/t']))[1]['loss']
+np.savez(sys.argv[2], loss=loss, **losses, **{'p/' + k: v for k, v in init.items()})
 """
+# the nets whose 2 steps the subprocess takes from the port's weights: tag ->
+# (the class, its JAX fields, z's shape), each 32 output rows over 2 blocks:
+# a tiny UNet (widths 4-64, blocks of 16 rows: its row rule), DCGAN with
+# transposed convs (6 input rows: blocks of 3, and of 6 and 10 after the stem
+# gives the last block its 2 extra rows) and the Skip with the lanczos2
+# post-down (K7's row form: 3 halo rows a side, replicated at the image's
+# edges)
+GIVEN = {
+    "unet": ("UNet", dict(feature_scale=16, upsample_mode="deconv", norm_kind="instance"),
+             (1, 32, 32, 3)),
+    "dcgan": ("DCGAN", dict(ndf=8, num_ups=4), (1, 6, 6, 2)),
+    "skip lanczos2": ("Skip", dict(num_channels_down=[8, 8], num_channels_up=[8, 8],
+                                   num_channels_skip=[4, 4], pad="reflection",
+                                   upsample_mode="bilinear", downsample_mode="lanczos2"),
+                      (1, 32, 32, 3)),
+}
 
 
-def test_matches_jax_spatial_engine_subprocess(tmp_path):
+def _given(tag):
+    """The port's net of GIVEN[tag], seam off, with the weights the
+    subprocess is given."""
+    cls, kw, shape = GIVEN[tag]
+    port = {"UNet": UNet, "DCGAN": DCGAN, "Skip": Skip}[cls]
+    net = port(num_input_channels=shape[-1], **kw, **({"up_conv": False} if cls == "Skip" else {}))
+    net.reset_parameters(torch.Generator().manual_seed(6))
+    return net
+
+
+@pytest.fixture(scope="module")
+def jax_spatial(tmp_path_factory):
     """The JAX SpatialEngine over 2 forced host devices (as
-    tests/test_parallel.py runs it: its net, here at 32^2, seam off)
-    against the port's at n = 2 from the JAX fit's initial flax params, 5
-    steps at lr 0.02, jitter off: loss per step at rtol 1e-3. The
-    subprocess takes about 15 s (its own time limit is 120 s)."""
+    tests/test_parallel.py runs it), in one subprocess of about 45 s on one
+    core (its own time limit is 240 s): its Skip's fit (the returned
+    record's 'p/' params and 'loss') and 2 steps of each net of GIVEN
+    from the port's initial weights ('l/' + its tag). Returns (record,
+    inputs)."""
+    tmp = tmp_path_factory.mktemp("jax_spatial")
+    z, tgt = _data(32)
+    inputs = dict(z=z, t=tgt)
     from flax import traverse_util
 
-    z, tgt = _data(32)
+    rng = np.random.default_rng(5)
+    for tag, (_, _, shape) in GIVEN.items():
+        net = _given(tag)
+        inputs[tag + "/z"] = (rng.random(shape) * 0.1).astype(np.float32)
+        with torch.no_grad():
+            out_shape = tuple(net(torch.from_numpy(inputs[tag + "/z"])).shape)
+        inputs[tag + "/t"] = rng.random(out_shape).astype(np.float32)
+        flat = traverse_util.flatten_dict(interop.state_dict_to_flax(net.state_dict(), net),
+                                          sep="/")
+        inputs.update({f"{tag}/w/{k}": np.asarray(v) for k, v in flat.items()})
+    np.savez(tmp / "in.npz", **inputs)
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=2",
                JAX_PLATFORMS="cpu")
-    np.savez(tmp_path / "in.npz", z=z, t=tgt)
-    res = subprocess.run([sys.executable, "-c", _JAX_SPATIAL, str(tmp_path / "in.npz"),
-                          str(tmp_path / "out.npz")],
+    script = f"GIVEN = {GIVEN!r}\n" + _JAX_SPATIAL
+    res = subprocess.run([sys.executable, "-c", script, str(tmp / "in.npz"),
+                          str(tmp / "out.npz")],
                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                         env=env, capture_output=True, text=True, timeout=120)
+                         env=env, capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr[-2000:]
-    out = np.load(tmp_path / "out.npz")
+    return np.load(tmp / "out.npz"), inputs
+
+
+def test_matches_jax_spatial_engine_subprocess(jax_spatial):
+    """The JAX SpatialEngine over 2 forced host devices (its net, here at
+    32^2, seam off) against the port's at n = 2 from the JAX fit's initial
+    flax params, 5 steps at lr 0.02, jitter off: loss per step at rtol
+    1e-3."""
+    from flax import traverse_util
+
+    out, inputs = jax_spatial
     init = traverse_util.unflatten_dict({k[2:]: out[k] for k in out.files if k.startswith("p/")},
                                         sep="/")
     se = SP.SpatialEngine(Skip(num_input_channels=DEPTH, up_conv=False, **JAX_NET), _loss,
                           teng.FitConfig(num_iter=5, lr=0.02, log_every=5),
                           mesh=Mesh(["cpu"] * 2, axis="sp"))
-    state = se.init_state(0, torch.from_numpy(z))
+    state = se.init_state(0, torch.from_numpy(inputs["z"]))
     se.model.load_state_dict(interop.flax_to_state_dict(init))
-    _, hist = se.run(state, torch.from_numpy(tgt))
+    _, hist = se.run(state, torch.from_numpy(inputs["t"]))
     np.testing.assert_allclose(hist["loss"], out["loss"], rtol=1e-3)
+
+
+def _given_steps(jax_spatial, tag):
+    """The port's SpatialEngine over 2 row blocks on the net of GIVEN[tag],
+    2 steps from the weights the subprocess was given, jitter off, against
+    the JAX SpatialEngine's losses: the first step's and the next one's at
+    rtol 1e-3."""
+    out, inputs = jax_spatial
+    weights = _given(tag).state_dict()
+    se = SP.SpatialEngine(_given(tag), _loss, teng.FitConfig(num_iter=2, lr=0.01, log_every=2),
+                          mesh=Mesh(["cpu"] * 2, axis="sp"))
+    state = se.init_state(0, torch.from_numpy(inputs[tag + "/z"]))
+    se.model.load_state_dict(weights)
+    _, hist = se.run(state, torch.from_numpy(inputs[tag + "/t"]))
+    np.testing.assert_allclose(hist["loss"], out["l/" + tag], rtol=1e-3)
+
+
+def test_unet_step_matches_jax_spatial_engine(jax_spatial):
+    """A tiny UNet (deconv up, instance norm) over 2 row blocks against the
+    JAX SpatialEngine (_given_steps). (The biases before the instance norms
+    have an exact gradient of 0, so Adam's first step moves them by +-lr on
+    either side's rounding noise; they do not move the output.)"""
+    _given_steps(jax_spatial, "unet")
+
+
+@pytest.mark.parametrize("tag", ["dcgan", "skip lanczos2"])
+def test_zoo_steps_match_jax_spatial_engine(jax_spatial, tag):
+    """DCGAN's unequal blocks (the stem's 2 extra rows, the transposed
+    convs' halos) and the Skip's lanczos2 post-down over row blocks (K7's
+    row form, seam off) against the JAX SpatialEngine, whose partitioner
+    places those halos itself (_given_steps)."""
+    _given_steps(jax_spatial, tag)
 
 
 # the commit before row blocks entered the model's ops (and before BatchEngine
@@ -473,8 +581,9 @@ def test_unsharded_path_bitwise_as_before(tmp_path):
 
 def test_refusals():
     """Each with its reason: a height that does not divide by the mesh, a
-    block that is not a multiple of 2^scales, a seam over a block of one LR
-    row, the Lanczos post-down (K7), a net other than Skip; and
+    Skip's block that is not a multiple of 2^scales, a seam over a block of
+    one LR row, a UNet's block that is not a multiple of 2^(4 +
+    more_layers), a module that is not a net of the zoo; and
     make_spatial_mesh without a CUDA device."""
     cfg = teng.FitConfig(num_iter=1)
     mesh = Mesh(["cpu"] * 4, axis="sp")
@@ -486,11 +595,11 @@ def test_refusals():
     state = eng.init_state(0, torch.zeros(1, 32, 32, DEPTH))
     with pytest.raises(ValueError, match="1 LR row at a fused seam"):
         eng.step(state, torch.zeros(1, 32, 32, 3))
-    with pytest.raises(ValueError, match="K7"):
-        SP.SpatialEngine(Skip(num_input_channels=DEPTH, downsample_mode="lanczos2", **FLAG),
-                         _loss, cfg, mesh=mesh)
-    with pytest.raises(ValueError, match="Skip only"):
-        SP.SpatialEngine(UNet(num_input_channels=DEPTH), _loss, cfg, mesh=mesh)
+    unet = SP.SpatialEngine(UNet(num_input_channels=DEPTH), _loss, cfg, mesh=mesh)
+    with pytest.raises(ValueError, match="2\\^\\(4 \\+ more_layers\\) = 16"):
+        unet.init_state(0, torch.zeros(1, 32, 32, DEPTH))
+    with pytest.raises(ValueError, match="zoo's nets"):
+        SP.SpatialEngine(torch.nn.Conv2d(DEPTH, 3, 3), _loss, cfg, mesh=mesh)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SP.make_spatial_mesh()

@@ -429,9 +429,10 @@ def fake_lib(monkeypatch):
 
 @pytest.mark.parametrize("ks,halo", [(3, 0), (3, 1), (1, 0)])
 def test_f32_wrappers_pass_planar_strides_and_copy_nothing(fake_lib, ks, halo):
-    """f32 K5 and K6 on channel-planar x and g: one dip_wgrad_f32 call with
-    the tensors' own pointers and element strides (no copy), the shape, the
-    plan's splits, tiles a split and slab pitch; one launch counted."""
+    """f32 K5 and K6 on channel-planar x and g: one dip_wgrad_f32_fits call
+    with one fit, the tensors' own pointers and element strides (no copy),
+    the shape, the plan's splits, tiles a split and slab pitch; one launch
+    counted."""
     h = 12
     hx = h + 2 - 2 * halo if ks == 3 else h
     x, g = _planar((2, hx, hx + 3, 12), 24, torch.float32), _planar((2, h, h + 3, 20), 25, torch.float32)
@@ -441,11 +442,11 @@ def test_f32_wrappers_pass_planar_strides_and_copy_nothing(fake_lib, ks, halo):
     assert W.LAUNCHES == {"wgrad3x3_s1": int(ks == 3), "wgrad1x1": int(ks == 1)}
     [(name, args)] = fake_lib.calls
     plan = W.f32_plan(2, h, h + 3, 12, 20, ks)
-    assert name == "dip_wgrad_f32"
+    assert name == "dip_wgrad_f32_fits" and args[4] == 1
     assert args[0] == x.data_ptr() and args[1] == g.data_ptr()
-    assert args[4:11] == (2, h, h + 3, hx, hx + 3, 12, 20)
-    assert args[11:19] == (*x.stride(), *g.stride())
-    assert args[19:24] == (ks, halo, plan.splits, plan.tiles_per_split, plan.workspace[3])
+    assert args[5:12] == (2, h, h + 3, hx, hx + 3, 12, 20)
+    assert args[12:20] == (*x.stride(), *g.stride())
+    assert args[20:25] == (ks, halo, plan.splits, plan.tiles_per_split, plan.workspace[3])
     assert fake_lib.copies == []
 
 
@@ -548,15 +549,44 @@ def test_vmap_bf16_batched_weight_runs_one_fit_axis_launch(fake_lib, ks):
 
 @pytest.mark.parametrize("ks", [3, 1])
 def test_vmap_f32_batched_weight_launches_once_a_fit(fake_lib, ks):
-    """In f32 (no fit axis in csrc/wgrad.cu) the wrapper launches the f32
-    kernel once a fit on that fit's n images as they lie: B calls, each
-    with N = n and the fit's own pointer, B launches counted."""
+    """In f32 the fit axis of csrc/wgrad.cu serves the B fits in one launch:
+    one dip_wgrad_f32_fits call with fits = B, N = B * n, x and g as they
+    lie (their own pointers and strides), sized by one fit's plan; one
+    launch counted."""
     W.reset_launches()
-    _vmapped_backward(ks, True, torch.float32)
-    assert [name for name, _ in fake_lib.calls] == ["dip_wgrad_f32"] * 3
-    starts = [args[0] for _, args in fake_lib.calls]
-    assert len(set(starts)) == 3 and all(args[4] == 2 for _, args in fake_lib.calls)
-    assert W.LAUNCHES == {"wgrad3x3_s1": 3 * (ks == 3), "wgrad1x1": 3 * (ks == 1)}
+    x = _vmapped_backward(ks, True, torch.float32)
+    [(name, args)] = fake_lib.calls
+    plan = W.f32_plan(2, 8, 16, 16, 16, ks)
+    assert name == "dip_wgrad_f32_fits"
+    assert args[4:12] == (3, 6, 8, 16, 8, 16, 16, 16)
+    assert args[20:25] == (ks, int(ks == 3), plan.splits, plan.tiles_per_split,
+                           plan.workspace[3])
+    assert args[0] == x.data_ptr()  # x read where it lies
+    assert W.LAUNCHES == {"wgrad3x3_s1": int(ks == 3), "wgrad1x1": int(ks == 1)}
+
+
+@pytest.mark.parametrize("ks,halo", [(3, 0), (3, 1), (1, 0)])
+def test_f32_fit_axis_passes_strides_and_one_fit_plan(fake_lib, ks, halo):
+    """f32 K5 and K6 with `fits` on channel-planar x and g: one
+    dip_wgrad_f32_fits call with fits, all N images, the tensors' own
+    pointers and element strides (no copy), and one fit's split plan; the
+    workspace a slab set a fit and dW (fits, k, k, Ci, Co); one launch."""
+    h, fits = 12, 2
+    hx = h + 2 - 2 * halo if ks == 3 else h
+    x = _planar((4, hx, hx + 3, 12), 60, torch.float32)
+    g = _planar((4, h, h + 3, 20), 61, torch.float32)
+    W.reset_launches()
+    dw = W.wgrad3x3_s1(x, g, halo, fits) if ks == 3 else W.wgrad1x1(x, g, fits)
+    assert tuple(dw.shape) == (fits, ks, ks, 12, 20) and dw.dtype == torch.float32
+    assert W.LAUNCHES == {"wgrad3x3_s1": int(ks == 3), "wgrad1x1": int(ks == 1)}
+    [(name, args)] = fake_lib.calls
+    plan = W.f32_plan(2, h, h + 3, 12, 20, ks)
+    assert name == "dip_wgrad_f32_fits" and args[4] == fits
+    assert args[0] == x.data_ptr() and args[1] == g.data_ptr()
+    assert args[5:12] == (4, h, h + 3, hx, hx + 3, 12, 20)
+    assert args[12:20] == (*x.stride(), *g.stride())
+    assert args[20:25] == (ks, halo, plan.splits, plan.tiles_per_split, plan.workspace[3])
+    assert fake_lib.copies == []
 
 
 def test_vmap_shared_weight_folds_the_fits_into_n(fake_lib):
