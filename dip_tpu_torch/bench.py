@@ -13,9 +13,9 @@ outside; its rate is iters x 8 / wall, and it checks that the 8 fits,
 seeded apart, end with different params. `run_batch` (the CLI's `bench
 --batch N` where there are several CUDA devices) runs the batch through
 BatchEngine over the device mesh instead: one vmapped program per device.
-Rows carry the same JSON keys as the JAX bench plus `eager`, `device`,
-`power_limit` and `tf32`. There is no CPU fallback: without a card it
-raises.
+Rows carry `metric`, `value` and `unit` (as the JAX bench's) with
+`eager`, `device`, `power_limit` and `tf32`. There is no CPU fallback:
+without a card it raises.
 
     python -m dip_tpu_torch.bench [--size 512] [--iters 100]
     python -m dip_tpu_torch.bench --profile 5   # kernel tables per dtype
@@ -24,9 +24,11 @@ raises.
     python -m dip_tpu_torch.bench --profile 5 --fit am-alexnet
     python -m dip_tpu_torch.bench --profile 5 --fit flagship-lanczos2 --blocks 4
 
-`--profile` profiles a graphed chunk and then as many eager steps, and
+`--profile` profiles a graphed chunk and then as many eager steps with
+the port's spans on (`dip.<layer>.<what>`, utils/profiling.py), and
 prints each window's wall and kernel ms a step and the device's idle
-share. `--fit kate` profiles inpainting 'kate' (128-channel skips, nearest
+share (one minus the union of the device operations' intervals over the
+wall time). `--fit kate` profiles inpainting 'kate' (128-channel skips, nearest
 up, masked MSE) on a synthetic image and mask of the same size in place of
 the flagship, `--fit library-unet` and `library-resnet` inpainting
 'library' with its UNet or its ResNet, `--fit fi-alexnet` feature
@@ -49,12 +51,12 @@ import argparse
 import json
 import subprocess
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-REFERENCE_GPU_ESTIMATE_ITERS_PER_SEC = 10.0
+from dip_tpu_torch.utils import profiling
+
 # the kernels of dip_tpu_torch/csrc, as the profiler names them
 PORT_KERNELS = ("up_conv_fwd_mma_kernel", "up_conv_dgrad_mma_kernel", "up_conv_dgrad_sum_kernel",
                 "up_conv_wgrad_mma_kernel", "up_conv_wgrad_sum_kernel",
@@ -67,12 +69,6 @@ KERNEL_KINDS = (("cuDNN/cuBLAS", ("cudnn", "xmma", "cutlass", "gemm", "convolve"
                 ("optimizer", ("multi_tensor_apply",)),
                 ("elementwise", ("elementwise",)),
                 ("reductions", ("reduce_kernel",)))
-_BASELINE = Path(__file__).resolve().parents[1] / "results" / "torch_baseline.json"
-
-
-def measured_torch_baseline() -> float:
-    """it/s of the reference PyTorch loop on a CPU (results/torch_baseline.json)."""
-    return float(json.loads(_BASELINE.read_text())["torch_it_per_s"])
 
 
 def card_line() -> str:
@@ -222,15 +218,10 @@ def _flagship(size: int, iters: int, compute_dtype: str | None, device: str,
 
 
 def _row(metric: str, ips: float, dev: torch.device, tf32: dict) -> dict:
-    baseline = measured_torch_baseline()
     return {
         "metric": metric,
         "value": round(ips, 2),
         "unit": "iters/s",
-        "vs_baseline": round(ips / baseline, 1),
-        "baseline_note": f"reference torch loop on a CPU: {baseline} it/s "
-                         f"(results/torch_baseline.json)",
-        "vs_ref_gpu_estimate": round(ips / REFERENCE_GPU_ESTIMATE_ITERS_PER_SEC, 2),
         "device": torch.cuda.get_device_name(dev),
         "power_limit": card_line().split(",")[-1].strip(),
         "tf32": tf32,
@@ -365,29 +356,45 @@ def run_full(size: int = 512, iters: int = 100, batch: int = 8,
     return result
 
 
+def _busy_us(prof) -> float:
+    """Microseconds in which at least one device operation runs (the union
+    of their intervals: operations that overlap on streams count once)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ivs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == cuda and not e.is_user_annotation)
+    busy, end = 0.0, float("-inf")
+    for a, b in ivs:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy
+
+
 def _profile_window(prof_steps, steps: int, what: str, eng) -> dict:
-    """torch.profiler over prof_steps(): the kernels by device time, each
-    of the port's own kernels with its ms and launches a step, and the
-    kernel time a step by kind (KERNEL_KINDS); returns the window's wall
-    time, summed kernel time, the device's idle share (1 - kernel time /
-    wall time), the port's kernels and the kinds."""
+    """torch.profiler over prof_steps(), the port's spans on: the kernels
+    by device time, each of the port's own kernels with its ms and launches
+    a step, and the kernel time a step by kind (KERNEL_KINDS); returns the
+    window's wall time, summed kernel time, the device's idle share (1 -
+    the union of the device operations' intervals / wall time), the port's
+    kernels and the kinds."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            profiling.tracing():
         t0 = time.perf_counter()
         prof_steps()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device rows, less the user annotations that also land on the device's
-    # timeline (Optimizer.step#Adam.step spans the whole step's kernels)
+    # timeline (the port's spans; Optimizer.step#Adam.step spans the step)
     avgs = prof.key_averages()
     device = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.is_user_annotation]
     kernel_us = sum(e.self_device_time_total for e in device)
+    idle = 1 - _busy_us(prof) / 1e6 / wall
     print(f"# profile {what}: {steps} steps, wall {wall * 1e3 / steps:.2f} ms/step, "
           f"kernels {kernel_us / 1e3 / steps:.2f} ms/step, device idle "
-          f"{1 - kernel_us / 1e6 / wall:.3f} | {card_line()} | {eng.tf32}", flush=True)
+          f"{idle:.3f} | {card_line()} | {eng.tf32}", flush=True)
     print(avgs.table(sort_by="self_device_time_total", row_limit=30), flush=True)
     ours: dict[str, list[float]] = {}  # name: [ms, launches] a step, over template instances
     kinds = dict.fromkeys(["port", *(k for k, _ in KERNEL_KINDS), "other"], 0.0)  # ms a step
@@ -406,7 +413,7 @@ def _profile_window(prof_steps, steps: int, what: str, eng) -> dict:
     print(f"# kernel kinds {what} (ms a step): " + ", ".join(
         f"{k} {ms:.2f}" for k, ms in kinds.items()), flush=True)
     return {"wall_ms_per_step": wall * 1e3 / steps, "kernel_ms_per_step": kernel_us / 1e3 / steps,
-            "device_idle": 1 - kernel_us / 1e6 / wall, "port_kernels": ours, "kinds": kinds}
+            "device_idle": idle, "port_kernels": ours, "kinds": kinds}
 
 
 def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
@@ -414,9 +421,10 @@ def profile(size: int = 512, steps: int = 5, compute_dtype: str | None = None,
             blocks: int = 0) -> dict:
     """The flagship (or its lanczos2 form, either over `blocks` row blocks
     with `blocks`; or an inpainting fit of MASKED_FITS, with `conv_wgrad`,
-    or a fit of PRETRAINED_FITS at its recipe's size) under torch.profiler,
-    after a warm chunk and 10 warm eager steps: a graphed chunk of `steps`
-    replays, then `steps` eager steps."""
+    or a fit of PRETRAINED_FITS at its recipe's size) under torch.profiler
+    with the port's spans on (profiling.tracing), after a warm chunk and 10
+    warm eager steps: a graphed chunk of `steps` replays, then `steps`
+    eager steps."""
     if fit in MASKED_FITS:
         eng, state, target = _kate(size, compute_dtype, device, conv_wgrad, steps, fit)
     elif fit in PRETRAINED_FITS:

@@ -68,6 +68,7 @@ from torch.func import functional_call
 from dip_tpu_torch.fit.lbfgs import ZoomLBFGS
 from dip_tpu_torch.ops import launches
 from dip_tpu_torch.ops.losses import psnr
+from dip_tpu_torch.utils.profiling import span
 
 OPTIMIZERS = ("adam", "sgd", "lbfgs")
 
@@ -169,9 +170,10 @@ def _write_row(metrics: dict, keys: tuple[str, ...], table: torch.Tensor,
                slot: torch.Tensor) -> None:
     """metrics[keys] into row `slot` of `table`, then slot + 1 (on the
     device: no host sync)."""
-    row = torch.stack([metrics[k].to(torch.float32) for k in keys])
-    table.index_copy_(0, slot, row[None])
-    slot.add_(1)
+    with span("dip.fit.row"):
+        row = torch.stack([metrics[k].to(torch.float32) for k in keys])
+        table.index_copy_(0, slot, row[None])
+        slot.add_(1)
 
 
 def concat_history(chunks: list[dict]) -> dict[str, np.ndarray]:
@@ -286,8 +288,12 @@ class Engine:
         if self.cfg.compute_dtype is None:
             # without weight jitter, `net` holds the model's own parameters
             return functional_call(self.model, net, (z,)) if self.cfg.param_noise else self.model(z)
-        cast = {k: v.to(torch.bfloat16) for k, v in net.items()}
-        return functional_call(self.model, cast, (z.to(torch.bfloat16),)).to(torch.float32)
+        with span("dip.fit.cast"):
+            cast = {k: v.to(torch.bfloat16) for k, v in net.items()}
+            zc = z.to(torch.bfloat16)
+        out = functional_call(self.model, cast, (zc,))
+        with span("dip.fit.cast"):
+            return out.to(torch.float32)
 
     def _base_input(self, state: FitState) -> torch.Tensor:
         return state.params["input"] if self.cfg.opt_input else state.z
@@ -310,62 +316,96 @@ class Engine:
         around the params as they stand, the loss and its backward (Adam
         and SGD call it once, L-BFGS's line search once a trial). Returns
         the loss and the output at the params before the update."""
-        jitter = self._jitter(state)
-        noise = self._weight_noise(state) if self.cfg.param_noise else None
+        with span("dip.fit.jitter"):
+            jitter = self._jitter(state)
+            noise = self._weight_noise(state) if self.cfg.param_noise else None
         first: list[torch.Tensor] = []
 
         def closure():
-            z = self._base_input(state)
-            out = self._forward(self.net_params(state, True, noise),
-                                z if jitter is None else z + jitter)
-            loss = self.loss_fn(state.params, out, aux)
-            state.opt.zero_grad(set_to_none=True)
-            loss.backward()
+            with span("dip.fit.forward"):
+                # the jittered input and weights are arguments only: freed
+                # when the forward returns, before the backward
+                out = self._forward(*self._jittered(state, jitter, noise))
+            with span("dip.fit.loss"):
+                loss, value = self._loss(state.params, out, aux)
+            with span("dip.fit.backward"):
+                state.opt.zero_grad(set_to_none=True)
+                loss.backward()
             if not first:
                 # the output as computed: with a trainable z, an identity
                 # net's output is the leaf itself, which the update changes
                 first.append(out.detach().clone() if self.cfg.opt_input else out.detach())
-            return loss
+            return value
 
-        return state.opt.step(closure).detach(), first[0]
+        with span("dip.fit.optimizer"):
+            return state.opt.step(closure).detach(), first[0]
+
+    def _loss(self, params: dict[str, torch.Tensor], out: torch.Tensor,
+              aux: Any) -> tuple[torch.Tensor, torch.Tensor]:
+        """(the loss to differentiate, the value the closure returns to the
+        optimizer)."""
+        loss = self.loss_fn(params, out, aux)
+        return loss, loss
+
+    def _step_metrics(self, out: torch.Tensor, ema: torch.Tensor, aux: Any) -> dict:
+        return self.metrics_fn(out, ema, aux)
+
+    def _jittered(self, state, jitter: torch.Tensor | None,
+                  noise: dict[str, torch.Tensor] | None) -> tuple[dict, torch.Tensor]:
+        """(the net's parameters, the input) as this step's forward sees
+        them: the step's weight jitter and input jitter added."""
+        with span("dip.fit.jitter"):
+            net = self.net_params(state, True, noise)
+            z = self._base_input(state)
+            return net, (z if jitter is None else z + jitter)
 
     def _advance(self, state: FitState, aux: Any) -> dict:
         """One training step on the device, every buffer of `state` updated
         in place (its host `step` aside); returns the metrics, 0-d
-        tensors. This is the body the CUDA graph captures."""
+        tensors (a batch's: one a fit). This is the body the CUDA graph
+        captures."""
         cfg = self.cfg
         if cfg.backtrack:
-            pre = {k: p.detach().clone() for k, p in state.params.items()}
+            with span("dip.fit.backtrack"):
+                pre = {k: p.detach().clone() for k, p in state.params.items()}
         loss, out = self._update(state, aux)
 
-        if state.ema_out is None:
-            state.ema_out = torch.zeros_like(out)
-        if cfg.exp_weight is None:
-            ema = out
-        else:
-            w = cfg.exp_weight
-            ema = torch.where(state.device_step == 0, out,
-                              state.ema_out * w + out * (1 - w))
+        with span("dip.fit.ema"):
+            if state.ema_out is None:
+                state.ema_out = torch.zeros_like(out)
+            if cfg.exp_weight is None:
+                ema = out
+            else:
+                w = cfg.exp_weight
+                ema = torch.where(state.device_step == 0, out,
+                                  state.ema_out * w + out * (1 - w))
 
-        metrics = {"loss": loss.detach()}
-        if cfg.optimizer == "lbfgs":
-            metrics["evals"] = torch.tensor(float(state.opt.last_evals), device=self.device)
-        if self.metrics_fn is not None:
-            metrics.update(self.metrics_fn(out, ema, aux))
+        with span("dip.fit.metrics"):
+            metrics = {"loss": loss}
+            if cfg.optimizer == "lbfgs":
+                metrics["evals"] = torch.tensor(state.opt.last_evals, dtype=torch.float32,
+                                                device=self.device)
+            if self.metrics_fn is not None:
+                metrics.update(self._step_metrics(out, ema, aux))
 
         if cfg.backtrack:
-            track = metrics["psnr_track"]
-            drop = (track - state.last_track) < -cfg.backtrack_threshold
-            with torch.no_grad():
-                for k, p in state.params.items():
-                    snap = state.snapshot[k]
-                    p.copy_(torch.where(drop, snap, p))
-                    snap.copy_(torch.where(drop, snap, pre[k]))
-            state.last_track.copy_(torch.where(drop, state.last_track, track))
-            metrics["backtracked"] = drop.to(torch.float32)
+            with span("dip.fit.backtrack"):
+                track = metrics["psnr_track"]
+                drop = (track - state.last_track) < -cfg.backtrack_threshold
+                with torch.no_grad():
+                    for k, p in state.params.items():
+                        # a batch's drop, one a fit, on each leaf's fit axis
+                        d = drop.view(-1, *[1] * (p.dim() - 1)) if drop.dim() else drop
+                        snap = state.snapshot[k]
+                        p.copy_(torch.where(d, snap, p))
+                        snap.copy_(torch.where(d, snap, pre[k]))
+                state.last_track.copy_(torch.where(drop, state.last_track, track))
+                metrics["backtracked"] = drop.to(torch.float32)
 
-        state.ema_out.copy_(ema)
-        state.device_step.add_(1)
+        # the EMA and the step counter that picks its first step
+        with span("dip.fit.ema"):
+            state.ema_out.copy_(ema)
+            state.device_step.add_(1)
         return metrics
 
     def step(self, state: FitState, aux: Any) -> tuple[FitState, dict]:
@@ -402,7 +442,8 @@ class Engine:
         if self._stream is None or (g is not None and g.aux is aux):
             return
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+        with span("dip.fit.capture"), torch.cuda.device(self.device), \
+                torch.cuda.stream(self._stream):
             _, metrics = self.step(state, aux)
             keys = tuple(metrics)
             # a row a step: the metrics, each of the shape the step gives it
@@ -453,11 +494,13 @@ class Engine:
             if g.pending == 0:
                 g.slot.zero_()
             for _ in range(g.pending, n):
-                g.graph.replay()
-                launches.add(g.launches)
+                with span("dip.fit.replay"):
+                    g.graph.replay()
+                    launches.add(g.launches)
             state.step += n - g.pending
             g.pending = 0
-            return {k: g.table[:n, i].clone() for i, k in enumerate(g.keys)}
+            with span("dip.fit.rows"):
+                return {k: g.table[:n, i].clone() for i, k in enumerate(g.keys)}
 
     def _warmup(self, state: FitState, aux: Any) -> None:
         """The L-BFGS fit's warm-up (the JAX engine's `_warmup`):
@@ -483,7 +526,8 @@ class Engine:
         """Make the caller's current stream wait for this fit's stream (no
         host sync); a no-op on the CPU."""
         if self._stream is not None:
-            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+            with span("dip.fit.wait"):
+                torch.cuda.current_stream(self.device).wait_stream(self._stream)
 
     def run(self, state: FitState, aux: Any,
             callback: Callable[[int, dict, FitState], None] | None = None):

@@ -29,6 +29,7 @@ from dip_tpu_torch.ops.pad import _MODES, pad2d
 from dip_tpu_torch.ops.resample import avg_pool, downsample, max_pool
 from dip_tpu_torch.ops.rows import Rows, cat_channels, cut_rows, gather_rows, halo_blocks
 from dip_tpu_torch.ops.up_conv import Up2, up2_conv3x3, up2_moments
+from dip_tpu_torch.utils.profiling import span
 
 # which convs take their weight gradient from the Hopper kernels (the JAX
 # package's DIP_PALLAS_WGRAD '0' | '1x1' | '3x3' | '1'/'all')
@@ -57,21 +58,22 @@ def torch_conv_init_(weight: torch.Tensor, bias: torch.Tensor | None,
 
 
 def act(x: torch.Tensor | Rows, act_fun: str | Callable = "LeakyReLU"):
-    if isinstance(x, Rows):
-        return x.map(lambda b: act(b, act_fun))
-    if callable(act_fun):
-        return act_fun(x)
-    if act_fun == "LeakyReLU":
-        return F.leaky_relu(x, 0.2)
-    if act_fun == "Swish":
-        return x * torch.sigmoid(x)
-    if act_fun == "ELU":
-        return F.elu(x)
-    if act_fun == "ReLU":
-        return F.relu(x)
-    if act_fun == "none":
-        return x
-    raise ValueError(f"unknown activation {act_fun!r}")
+    with span("dip.model.act"):
+        if isinstance(x, Rows):
+            return x.map(lambda b: act(b, act_fun))
+        if callable(act_fun):
+            return act_fun(x)
+        if act_fun == "LeakyReLU":
+            return F.leaky_relu(x, 0.2)
+        if act_fun == "Swish":
+            return x * torch.sigmoid(x)
+        if act_fun == "ELU":
+            return F.elu(x)
+        if act_fun == "ReLU":
+            return F.relu(x)
+        if act_fun == "none":
+            return x
+        raise ValueError(f"unknown activation {act_fun!r}")
 
 
 def _moments(p: torch.Tensor | Up2) -> tuple[torch.Tensor, torch.Tensor]:
@@ -117,29 +119,30 @@ class TrainBatchNorm(nn.Module):
         return s, t
 
     def forward(self, x, as_affine: bool = False):
-        parts = isinstance(x, (list, tuple))
-        xs = list(x) if parts else [x]
-        if as_affine:
-            ss, ts, off = [], [], 0
+        with span("dip.model.bn"):
+            parts = isinstance(x, (list, tuple))
+            xs = list(x) if parts else [x]
+            if as_affine:
+                ss, ts, off = [], [], 0
+                for p in xs:
+                    s, t = self._affine(p, off)
+                    ss.append(s)
+                    ts.append(t)
+                    off += p.shape[-1]
+                return x, torch.cat(ss), torch.cat(ts)
+            out, off = [], 0
             for p in xs:
-                s, t = self._affine(p, off)
-                ss.append(s)
-                ts.append(t)
-                off += p.shape[-1]
-            return x, torch.cat(ss), torch.cat(ts)
-        out, off = [], 0
-        for p in xs:
-            ci = p.shape[-1]
-            if isinstance(p, Up2):
-                s, t = self._affine(p, off)
-                y = p.affine(s, t)
-            else:
-                mean, var = _moments(p)
-                y = (p - mean) * torch.rsqrt(var + self.eps)
-                y = y * self.weight[off:off + ci] + self.bias[off:off + ci]
-            out.append(y)
-            off += ci
-        return out if parts else out[0]
+                ci = p.shape[-1]
+                if isinstance(p, Up2):
+                    s, t = self._affine(p, off)
+                    y = p.affine(s, t)
+                else:
+                    mean, var = _moments(p)
+                    y = (p - mean) * torch.rsqrt(var + self.eps)
+                    y = y * self.weight[off:off + ci] + self.bias[off:off + ci]
+                out.append(y)
+                off += ci
+            return out if parts else out[0]
 
 
 class InstanceNorm(nn.Module):
@@ -152,18 +155,19 @@ class InstanceNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor | Rows):
-        if isinstance(x, Rows):
-            # the blocks' sums, added on block 0's device: the mean, then the
-            # centred second moment, each (N, 1, 1, C)
-            n, h, w, c = x.shape
-            xf = x.to(torch.float32)
-            mean = (xf.sum((1, 2)) / (h * w)).view(n, 1, 1, c)
-            d = xf - mean
-            var = ((d * d).sum((1, 2)) / (h * w)).view(n, 1, 1, c)
-            return (d * torch.rsqrt(var + self.eps)).to(x.dtype)
-        xf = x.float()
-        var, mean = torch.var_mean(xf, dim=(1, 2), correction=0, keepdim=True)
-        return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+        with span("dip.model.bn"):
+            if isinstance(x, Rows):
+                # the blocks' sums, added on block 0's device: the mean, then the
+                # centred second moment, each (N, 1, 1, C)
+                n, h, w, c = x.shape
+                xf = x.to(torch.float32)
+                mean = (xf.sum((1, 2)) / (h * w)).view(n, 1, 1, c)
+                d = xf - mean
+                var = ((d * d).sum((1, 2)) / (h * w)).view(n, 1, 1, c)
+                return (d * torch.rsqrt(var + self.eps)).to(x.dtype)
+            xf = x.float()
+            var, mean = torch.var_mean(xf, dim=(1, 2), correction=0, keepdim=True)
+            return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
 def norm(kind: str | None, features: int) -> nn.Module:
@@ -250,49 +254,51 @@ class Conv(nn.Module):
     def forward(self, x, in_scale: torch.Tensor | None = None,
                 in_shift: torch.Tensor | None = None,
                 seam_carry: bool = False, conv_wgrad: str = "off") -> torch.Tensor:
-        ks = self.kernel_size
-        stride = 1 if self.post_down else self.stride
-        wgrad = check_conv_wgrad(conv_wgrad)
-        if in_scale is not None and ks > 1 and self.pad not in (
-                "reflection", "replication"):
-            raise ValueError(
-                "affine folding into a zero-padded k>1 conv is not exact "
-                "(padded zeros lack the shift); materialize the BN instead")
-        to_pad = (ks - 1) // 2
-        parts_in = isinstance(x, (list, tuple))
-        xs = list(x) if parts_in else [x]
-        kernel = self.weight
-        y, off = None, 0
-        for p in xs:
-            ci = p.shape[-1]
-            kp = kernel[:, off:off + ci] if parts_in else kernel
-            if in_scale is not None:
-                kp = kp * in_scale[off:off + ci].to(kp.dtype)[None, :, None, None]
-            if isinstance(p, Up2):
-                if ks != 3 or stride != 1:
-                    raise ValueError(f"Up2 parts need a 3x3 stride-1 conv, got {ks}, {stride}")
-                if seam_carry and y is not None:
-                    y = up2_conv3x3(p.x, kp.permute(2, 3, 1, 0), p.mode, self.pad, carry=y)
-                    off += ci
-                    continue
-                yi = up2_conv3x3(p.x, kp.permute(2, 3, 1, 0), p.mode, self.pad)
-            else:
-                yi = _pad_conv(p, kp, stride, to_pad, self.pad, wgrad)
-            y = yi if y is None else y + yi
-            off += ci
-        if in_shift is not None:
-            y = y + (kernel * in_shift.to(kernel.dtype)[None, :, None, None]).sum(
-                (1, 2, 3)).to(y.dtype)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        if self.post_down == "avg":
-            y = avg_pool(y, self.stride)
-        elif self.post_down == "max":
-            y = max_pool(y, self.stride)
-        elif self.post_down:
-            # the downsample kernel takes f32
-            y = downsample(y.to(torch.float32), self.stride, self.post_down, 0.5, True).to(y.dtype)
-        return y
+        with span("dip.model.conv"):
+            ks = self.kernel_size
+            stride = 1 if self.post_down else self.stride
+            wgrad = check_conv_wgrad(conv_wgrad)
+            if in_scale is not None and ks > 1 and self.pad not in (
+                    "reflection", "replication"):
+                raise ValueError(
+                    "affine folding into a zero-padded k>1 conv is not exact "
+                    "(padded zeros lack the shift); materialize the BN instead")
+            to_pad = (ks - 1) // 2
+            parts_in = isinstance(x, (list, tuple))
+            xs = list(x) if parts_in else [x]
+            kernel = self.weight
+            y, off = None, 0
+            for p in xs:
+                ci = p.shape[-1]
+                kp = kernel[:, off:off + ci] if parts_in else kernel
+                if in_scale is not None:
+                    kp = kp * in_scale[off:off + ci].to(kp.dtype)[None, :, None, None]
+                if isinstance(p, Up2):
+                    if ks != 3 or stride != 1:
+                        raise ValueError(f"Up2 parts need a 3x3 stride-1 conv, got {ks}, {stride}")
+                    if seam_carry and y is not None:
+                        y = up2_conv3x3(p.x, kp.permute(2, 3, 1, 0), p.mode, self.pad, carry=y)
+                        off += ci
+                        continue
+                    yi = up2_conv3x3(p.x, kp.permute(2, 3, 1, 0), p.mode, self.pad)
+                else:
+                    yi = _pad_conv(p, kp, stride, to_pad, self.pad, wgrad)
+                y = yi if y is None else y + yi
+                off += ci
+            if in_shift is not None:
+                y = y + (kernel * in_shift.to(kernel.dtype)[None, :, None, None]).sum(
+                    (1, 2, 3)).to(y.dtype)
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype)
+            if self.post_down == "avg":
+                y = avg_pool(y, self.stride)
+            elif self.post_down == "max":
+                y = max_pool(y, self.stride)
+            elif self.post_down:
+                # the downsample kernel takes f32
+                y = downsample(y.to(torch.float32), self.stride, self.post_down, 0.5,
+                               True).to(y.dtype)
+            return y
 
 
 class ConvTranspose(nn.Module):
@@ -314,11 +320,12 @@ class ConvTranspose(nn.Module):
         torch_conv_init_(w, self.bias, generator, w.shape[0] * w.shape[2] * w.shape[3])
 
     def forward(self, x: torch.Tensor | Rows):
-        if isinstance(x, Rows):
-            return self._rows(x)
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride,
-                               self.padding)
-        return y.permute(0, 2, 3, 1)
+        with span("dip.model.conv"):
+            if isinstance(x, Rows):
+                return self._rows(x)
+            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride,
+                                   self.padding)
+            return y.permute(0, 2, 3, 1)
 
     def _rows(self, x: Rows) -> Rows:
         """Over row blocks. Output row o sums input rows i with o = i*s - p + t,
@@ -376,15 +383,17 @@ def reset_parameters_(model: nn.Module, generator: torch.Generator) -> None:
 def crop_to_min(tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """Centre-crop all NHWC inputs to the smallest common H, W (row blocks
     along W only: Rows refuses a crop along H)."""
-    th = min(t.shape[1] for t in tensors)
-    tw = min(t.shape[2] for t in tensors)
-    out = []
-    for t in tensors:
-        dh = (t.shape[1] - th) // 2
-        dw = (t.shape[2] - tw) // 2
-        out.append(t[:, dh:dh + th, dw:dw + tw, :])
-    return out
+    with span("dip.model.up"):
+        th = min(t.shape[1] for t in tensors)
+        tw = min(t.shape[2] for t in tensors)
+        out = []
+        for t in tensors:
+            dh = (t.shape[1] - th) // 2
+            dw = (t.shape[2] - tw) // 2
+            out.append(t[:, dh:dh + th, dw:dw + tw, :])
+        return out
 
 
 def concat_cropped(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return cat_channels(crop_to_min(tensors))
+    with span("dip.model.up"):
+        return cat_channels(crop_to_min(tensors))

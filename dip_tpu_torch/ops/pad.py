@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from dip_tpu_torch.utils.profiling import span
+
 _MODES = {
     "zero": "constant",
     "constant": "constant",
@@ -77,14 +79,15 @@ class _EdgePad(torch.autograd.Function):
 def pad2d(x: torch.Tensor, pad: int | tuple[int, int],
           mode: str = "zero") -> torch.Tensor:
     """Pad the spatial dims (H, W) of an NHWC or HWC tensor."""
-    ph, pw = (pad, pad) if isinstance(pad, int) else pad
-    if ph == 0 and pw == 0:
-        return x
-    if mode not in _MODES:
-        raise ValueError(f"unknown pad mode {mode!r}")
-    x4 = x if x.dim() == 4 else x.unsqueeze(0)
-    if _MODES[mode] == "constant":
-        y = F.pad(x4.permute(0, 3, 1, 2), (pw, pw, ph, ph)).permute(0, 2, 3, 1)
-    else:
-        y = _EdgePad.apply(x4, ph, pw, _MODES[mode])
-    return y if x.dim() == 4 else y.squeeze(0)
+    with span("dip.model.pad"):
+        ph, pw = (pad, pad) if isinstance(pad, int) else pad
+        if ph == 0 and pw == 0:
+            return x
+        if mode not in _MODES:
+            raise ValueError(f"unknown pad mode {mode!r}")
+        x4 = x if x.dim() == 4 else x.unsqueeze(0)
+        if _MODES[mode] == "constant":
+            y = F.pad(x4.permute(0, 3, 1, 2), (pw, pw, ph, ph)).permute(0, 2, 3, 1)
+        else:
+            y = _EdgePad.apply(x4, ph, pw, _MODES[mode])
+        return y if x.dim() == 4 else y.squeeze(0)

@@ -40,6 +40,7 @@ from dip_tpu_torch.ops import hopper_resample
 from dip_tpu_torch.ops.consts import device_const
 from dip_tpu_torch.ops.pad import pad2d
 from dip_tpu_torch.ops.rows import Rows, halo_blocks
+from dip_tpu_torch.utils.profiling import span
 
 
 def upsample(x: torch.Tensor | Rows, scale: int = 2, mode: str = "nearest"):
@@ -48,19 +49,20 @@ def upsample(x: torch.Tensor | Rows, scale: int = 2, mode: str = "nearest"):
     row blocks, bilinear resizes each block with a halo row a side (edge
     replication at the image's true top and bottom, the resize's clamp)
     and cuts the halo's output rows off."""
-    if isinstance(x, Rows):
+    with span("dip.model.up"):
+        if isinstance(x, Rows):
+            if mode == "nearest":
+                return x.map(lambda b: upsample(b, scale, mode))
+            return Rows([upsample(xr, scale, mode)[:, scale:-scale]
+                         for xr in halo_blocks(x, 1, 1, "replicate")])
         if mode == "nearest":
-            return x.map(lambda b: upsample(b, scale, mode))
-        return Rows([upsample(xr, scale, mode)[:, scale:-scale]
-                     for xr in halo_blocks(x, 1, 1, "replicate")])
-    if mode == "nearest":
-        y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=scale, mode="nearest")
-    elif mode == "bilinear":
-        y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=scale,
-                          mode="bilinear", align_corners=False)
-    else:
-        raise ValueError(f"unknown upsample mode {mode!r}")
-    return y.permute(0, 2, 3, 1)
+            y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=scale, mode="nearest")
+        elif mode == "bilinear":
+            y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=scale,
+                              mode="bilinear", align_corners=False)
+        else:
+            raise ValueError(f"unknown upsample mode {mode!r}")
+        return y.permute(0, 2, 3, 1)
 
 
 def avg_pool(x: torch.Tensor | Rows, window: int, stride: int | None = None):

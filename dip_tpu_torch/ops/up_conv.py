@@ -31,6 +31,7 @@ import torch
 from dip_tpu_torch.ops.consts import device_const as _const
 from dip_tpu_torch.ops.hopper_up_conv import up2_conv3x3_hopper
 from dip_tpu_torch.ops.rows import Rows, allsum, gather_rows, halo_blocks
+from dip_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -180,17 +181,18 @@ def up2_conv3x3(x: torch.Tensor | Rows, kernel: torch.Tensor,
     `carry` (the output's shape, x's dtype) is added in the forward
     kernel's epilogue; the reflection corrections come after it.
     """
-    if kernel.shape[:3] != (3, 3, x.shape[3]):
-        raise ValueError(f"kernel {tuple(kernel.shape)} does not fit x {tuple(x.shape)}")
-    if isinstance(x, Rows):
-        return _up2_conv3x3_rows(x, kernel, up_mode, pad_mode, carry)
-    e = effective_kernel(kernel, up_mode)
-    xp = torch.cat([x[:, :1], x, x[:, -1:]], dim=1)
-    xp = torch.cat([xp[:, :, :1], xp, xp[:, :, -1:]], dim=2)
-    z = up2_conv3x3_hopper(xp, e, None if carry is None else carry.contiguous())
-    if up_mode == "bilinear" and pad_mode in ("reflection", "reflect"):
-        z = _add_reflect_corrections(z, x, kernel)
-    return z
+    with span("dip.kernels.seam"):
+        if kernel.shape[:3] != (3, 3, x.shape[3]):
+            raise ValueError(f"kernel {tuple(kernel.shape)} does not fit x {tuple(x.shape)}")
+        if isinstance(x, Rows):
+            return _up2_conv3x3_rows(x, kernel, up_mode, pad_mode, carry)
+        e = effective_kernel(kernel, up_mode)
+        xp = torch.cat([x[:, :1], x, x[:, -1:]], dim=1)
+        xp = torch.cat([xp[:, :, :1], xp, xp[:, :, -1:]], dim=2)
+        z = up2_conv3x3_hopper(xp, e, None if carry is None else carry.contiguous())
+        if up_mode == "bilinear" and pad_mode in ("reflection", "reflect"):
+            z = _add_reflect_corrections(z, x, kernel)
+        return z
 
 
 def _p_band_halo(h: int) -> np.ndarray:
@@ -274,30 +276,31 @@ def up2_moments(x: torch.Tensor | Rows, up_mode: str) -> tuple[torch.Tensor, tor
     products rounded to bf16 (the JAX package's form), a channel whose
     variance is a thousandth of its squared mean came out negative and
     BN's rsqrt made the fit NaN (flash/no-flash at lr 0.1 in bf16)."""
-    f32 = torch.float32
-    if isinstance(x, Rows):
-        return _up2_moments_rows(x, up_mode)
-    if up_mode == "nearest":
+    with span("dip.kernels.seam"):
+        f32 = torch.float32
+        if isinstance(x, Rows):
+            return _up2_moments_rows(x, up_mode)
+        if up_mode == "nearest":
+            xf = x.to(f32)
+            return (xf.mean((0, 1, 2)).to(x.dtype),
+                    xf.var((0, 1, 2), unbiased=False).to(x.dtype))
+        if up_mode != "bilinear":
+            raise ValueError(f"unsupported upsample mode for moments: {up_mode!r}")
+        n, h, w, c = x.shape
+        if h < 2 or w < 2:
+            raise ValueError(f"up2_moments needs h, w >= 2, got {h}x{w}")
         xf = x.to(f32)
-        return (xf.mean((0, 1, 2)).to(x.dtype),
-                xf.var((0, 1, 2), unbiased=False).to(x.dtype))
-    if up_mode != "bilinear":
-        raise ValueError(f"unsupported upsample mode for moments: {up_mode!r}")
-    n, h, w, c = x.shape
-    if h < 2 or w < 2:
-        raise ValueError(f"up2_moments needs h, w >= 2, got {h}x{w}")
-    xf = x.to(f32)
-    mean = xf.mean((0, 1, 2))
-    g0h = _const(_gram_diag, h, f32, x.device)
-    g0w = _const(_gram_diag, w, f32, x.device)
-    s0 = torch.einsum("nhwc,h,w->c", xf * xf, g0h, g0w)
-    sh = 0.75 * torch.einsum("nhwc,w->c", xf[:, :-1] * xf[:, 1:], g0w)
-    sw = 0.75 * torch.einsum("nhwc,h->c", xf[:, :, :-1] * xf[:, :, 1:], g0h)
-    sd = 0.28125 * ((xf[:, :-1, :-1] * xf[:, 1:, 1:]).sum((0, 1, 2))
-                    + (xf[:, 1:, :-1] * xf[:, :-1, 1:]).sum((0, 1, 2)))
-    second = (s0 + sh + sw + sd) / (n * 4 * h * w)
-    var = torch.clamp(second - mean * mean, min=0.0)
-    return mean.to(x.dtype), var.to(x.dtype)
+        mean = xf.mean((0, 1, 2))
+        g0h = _const(_gram_diag, h, f32, x.device)
+        g0w = _const(_gram_diag, w, f32, x.device)
+        s0 = torch.einsum("nhwc,h,w->c", xf * xf, g0h, g0w)
+        sh = 0.75 * torch.einsum("nhwc,w->c", xf[:, :-1] * xf[:, 1:], g0w)
+        sw = 0.75 * torch.einsum("nhwc,h->c", xf[:, :, :-1] * xf[:, :, 1:], g0h)
+        sd = 0.28125 * ((xf[:, :-1, :-1] * xf[:, 1:, 1:]).sum((0, 1, 2))
+                        + (xf[:, 1:, :-1] * xf[:, :-1, 1:]).sum((0, 1, 2)))
+        second = (s0 + sh + sw + sd) / (n * 4 * h * w)
+        var = torch.clamp(second - mean * mean, min=0.0)
+        return mean.to(x.dtype), var.to(x.dtype)
 
 
 def _up2_moments_rows(x: Rows, up_mode: str) -> tuple[torch.Tensor, torch.Tensor]:

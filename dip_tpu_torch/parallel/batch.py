@@ -47,6 +47,7 @@ from torch.func import functional_call, vmap
 from dip_tpu_torch.fit.engine import Engine, FitConfig, schedule_std
 from dip_tpu_torch.fit.lbfgs import BatchZoomLBFGS
 from dip_tpu_torch.parallel.mesh import Mesh, shard_batch
+from dip_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -84,8 +85,9 @@ class BatchState:
 
 
 class _DeviceBatch(Engine):
-    """b fits on one device as one vmapped step program: Engine's capture,
-    replays and stream, over a BatchFitState."""
+    """b fits on one device as one vmapped step program: Engine's step
+    body (its hooks vmapped here), capture, replays and stream, over a
+    BatchFitState."""
 
     def init_state(self, seeds: Sequence[int], zs: torch.Tensor,
                    extra: dict[str, torch.Tensor] | None = None) -> BatchFitState:
@@ -129,9 +131,10 @@ class _DeviceBatch(Engine):
         else:
             return None
         shape = state.z.shape[1:]
-        return std * torch.stack([
-            torch.randn(shape, generator=g, device=self.device, dtype=state.z.dtype)
-            for g in state.generators])
+        with span("dip.batch.jitter"):
+            return std * torch.stack([
+                torch.randn(shape, generator=g, device=self.device, dtype=state.z.dtype)
+                for g in state.generators])
 
     def _optimizer(self, params: dict[str, torch.Tensor]) -> torch.optim.Optimizer:
         if self.cfg.optimizer == "lbfgs":
@@ -141,9 +144,10 @@ class _DeviceBatch(Engine):
     def _weight_noise(self, state: BatchFitState) -> dict[str, torch.Tensor]:
         """Each fit's N(0,1) of each conv weight's shape, by name, from the
         fit's own weight-jitter generator, stacked (b, ...)."""
-        return {k: torch.stack([torch.randn(w.shape[1:], generator=g, device=w.device,
-                                            dtype=w.dtype) for g in state.param_generators])
-                for k, w in ((k, state.params[k]) for k in self.net_keys) if w.dim() == 5}
+        with span("dip.batch.jitter"):
+            return {k: torch.stack([torch.randn(w.shape[1:], generator=g, device=w.device,
+                                                dtype=w.dtype) for g in state.param_generators])
+                    for k, w in ((k, state.params[k]) for k in self.net_keys) if w.dim() == 5}
 
     def net_params(self, state: BatchFitState, train: bool,
                    noise: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
@@ -165,69 +169,22 @@ class _DeviceBatch(Engine):
         fits = vmap(lambda p, zi: functional_call(self.model, p, (zi,)))
         if self.cfg.compute_dtype is None:
             return fits(net, z)
-        cast = {k: v.to(torch.bfloat16) for k, v in net.items()}
-        return fits(cast, z.to(torch.bfloat16)).to(torch.float32)
+        with span("dip.fit.cast"):
+            cast = {k: v.to(torch.bfloat16) for k, v in net.items()}
+            zc = z.to(torch.bfloat16)
+        out = fits(cast, zc)
+        with span("dip.fit.cast"):
+            return out.to(torch.float32)
 
-    def _update(self, state: BatchFitState, aux: Any) -> tuple[torch.Tensor, torch.Tensor]:
-        """Engine._update for the b fits: the jitter drawn once, the closure
-        a vmapped forward and the per-fit losses, whose sum's one backward
-        gives each fit its own gradient; returns the (b,) losses and the
-        outputs at the params before the update."""
-        jitter = self._jitter(state)
-        noise = self._weight_noise(state) if self.cfg.param_noise else None
-        first: list[torch.Tensor] = []
+    def _loss(self, params: dict[str, torch.Tensor], out: torch.Tensor,
+              aux: Any) -> tuple[torch.Tensor, torch.Tensor]:
+        """The per-fit losses: their sum's one backward gives each fit its
+        own gradient; the optimizer gets the (b,) losses."""
+        losses = vmap(self.loss_fn)(params, out, aux)
+        return losses.sum(), losses.detach()
 
-        def closure():
-            z = self._base_input(state)
-            out = self._forward(self.net_params(state, True, noise),
-                                z if jitter is None else z + jitter)
-            losses = vmap(self.loss_fn)(state.params, out, aux)
-            state.opt.zero_grad(set_to_none=True)
-            losses.sum().backward()
-            if not first:
-                first.append(out.detach().clone() if self.cfg.opt_input else out.detach())
-            return losses.detach()
-
-        return state.opt.step(closure), first[0]
-
-    def _advance(self, state: BatchFitState, aux: Any) -> dict:
-        """One training step of every fit, in place; returns the metrics,
-        (b,) tensors. This is the body the CUDA graph captures."""
-        cfg = self.cfg
-        if cfg.backtrack:
-            pre = {k: p.detach().clone() for k, p in state.params.items()}
-        losses, out = self._update(state, aux)
-
-        if state.ema_out is None:
-            state.ema_out = torch.zeros_like(out)
-        if cfg.exp_weight is None:
-            ema = out
-        else:
-            w = cfg.exp_weight
-            ema = torch.where(state.device_step == 0, out, state.ema_out * w + out * (1 - w))
-
-        metrics = {"loss": losses}
-        if cfg.optimizer == "lbfgs":
-            metrics["evals"] = torch.tensor(state.opt.last_evals, dtype=torch.float32,
-                                            device=self.device)
-        if self.metrics_fn is not None:
-            metrics.update(vmap(self.metrics_fn)(out, ema, aux))
-
-        if cfg.backtrack:
-            track = metrics["psnr_track"]
-            drop = (track - state.last_track) < -cfg.backtrack_threshold
-            with torch.no_grad():
-                for k, p in state.params.items():
-                    d = drop.view(-1, *[1] * (p.dim() - 1))
-                    snap = state.snapshot[k]
-                    p.copy_(torch.where(d, snap, p))
-                    snap.copy_(torch.where(d, snap, pre[k]))
-            state.last_track.copy_(torch.where(drop, state.last_track, track))
-            metrics["backtracked"] = drop.to(torch.float32)
-
-        state.ema_out.copy_(ema)
-        state.device_step.add_(1)
-        return metrics
+    def _step_metrics(self, out: torch.Tensor, ema: torch.Tensor, aux: Any) -> dict:
+        return vmap(self.metrics_fn)(out, ema, aux)
 
     def on_device(self):
         """The device context the fits' eager launches need (the kernels
@@ -318,10 +275,11 @@ class BatchEngine:
         chunks: list[list[dict]] = []
         while remaining > 0:
             n = min(self.cfg.log_every, remaining)
-            chunks.append([p.run_chunk(s, a, n)
-                           for p, s, a in zip(self.parts, state.shards, parts_aux)])
-            for p in self.parts:
-                p.wait()
+            with span("dip.batch.chunk"):
+                chunks.append([p.run_chunk(s, a, n)
+                               for p, s, a in zip(self.parts, state.shards, parts_aux)])
+                for p in self.parts:
+                    p.wait()
             remaining -= n
             it += n
             if callback is not None:
@@ -342,5 +300,6 @@ class BatchEngine:
 
 def _host(per_device: list[dict]) -> dict[str, np.ndarray]:
     """Per-device (n, b) metrics as one (n, B) numpy array each."""
-    return {k: np.concatenate([np.asarray(m[k].cpu()) for m in per_device], axis=1)
-            for k in per_device[0]}
+    with span("dip.batch.host"):
+        return {k: np.concatenate([np.asarray(m[k].cpu()) for m in per_device], axis=1)
+                for k in per_device[0]}

@@ -1,0 +1,9 @@
+"""Device ms a fit-iteration of the eager pass's operations that
+`dip.model.act` owns: the activations (`act`), their
+backward included (dipbench/spans.py)."""
+
+from dipbench.spans import owned_ms
+
+
+def read(run):
+    return owned_ms(run, lambda owner: owner == "dip.model.act")

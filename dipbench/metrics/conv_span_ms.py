@@ -1,0 +1,10 @@
+"""Device ms a fit-iteration of the eager pass's operations that
+`dip.model.conv` owns: the convolutions (`Conv.forward`: the library conv,
+layout permutes, part sums and bias), their
+backward included (dipbench/spans.py)."""
+
+from dipbench.spans import owned_ms
+
+
+def read(run):
+    return owned_ms(run, lambda owner: owner == "dip.model.conv")
