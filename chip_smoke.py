@@ -39,7 +39,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      gradient; the downsample kernel's row form (a row block with its halo
      rows, row pad 0, column pad p) against its plain version at the
      128-channel post-down (1,512,512,128), a 4-block Skip's top block and
-     lanczos3, timed at the first;
+     lanczos3, timed at the first; the up2 moments' kernels (forward
+     and backward) against the PyTorch formula and the backward's plain
+     version at the five flagship seams' LR tensors, bf16 and
+     channel-planar as the fit gives them, and in the fits form (8 fits of
+     the top seam), graph-timed at the top seam with their bounds;
   4. small-input reference: a 2-scale 128-channel skip net, forward and
      gradients on the card against the same net on the CPU: under an MSE
      at full resolution, and under the SR loss (x4 downsample, MSE at LR)
@@ -151,19 +155,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
      (fit_batch: 8 fits at 256^2), in an empty directory: rc 0, finite
      loss or PSNR lines, its images written, and exactly the launches its
      fits imply;
- 20. [recipes] `tools.reproduce --quick` over the 13 recipes in bf16, then
-     in f32, on the stand-ins: finite records, K1-K4 launched by every
-     recipe on a skip net and K7 by the SR ones; then `--quick-gate` in
-     f32 and in bf16: every bf16 best within 0.75 dB of the f32 best (the
-     PSNR floors, set on the reference's photos, printed beside the
-     readings and not held here);
- 21. [train] `tools.train_backbone --quick` under deterministic cuDNN from
+ 20. [train] `tools.train_backbone --quick` under deterministic cuDNN from
      its fixed seeds: AlexNet trained 400 steps at
      batch 16 to a held-out accuracy of at least 0.9, its exported .pth
      reloaded through pretrained/convert.py bit for bit the trained
      state, and falling losses of feature inversion (fc6) and activation
-     maximization (fc8 class 3) on it, 60 iterations each; each phase's
-     wall is printed.
+     maximization (fc8 class 3) on it, 60 iterations each;
+ 21. [recipes] `tools.reproduce --quick` over the 13 recipes in bf16, then
+     in f32, on the stand-ins: finite records, K1-K4 launched by every
+     recipe on a skip net and K7 by the SR ones; then `--quick-gate` in
+     f32 and in bf16: every bf16 best within 0.75 dB of the f32 best (the
+     PSNR floors, set on the reference's photos, printed beside the
+     readings and not held here), last, since its bf16 gate reads one
+     chaotic SR fit a dtype and a failure there keeps no later phase
+     off the card; each phase's wall is printed.
 The last three lines are the card line, a JSON object of the kernels (each
 with its launches on a main path, the seam kernels' fit-axis forms as rows
 of their own with their launches in [batch], the weight gradients' fit
@@ -173,7 +178,10 @@ TFLOP/s bf16 or 67 TFLOP/s f32 FMA; the weight gradients' rows give their
 bf16 figures as the row's own, their f32 figures under "f32" and each
 dtype's source under "sources"; the downsample's row gives SR x4 as its
 own and x4, x8 and 128 channels under "shapes", its row form's row the
-(1,512,512,128) block and the launches of [spatial]'s Lanczos Skip), and
+(1,512,512,128) block and the launches of [spatial]'s Lanczos Skip; the
+up2 moments' forward and backward rows give the top flagship seam and the
+flagship fits' launches, their fit-axis rows 8 fits of it and [batch]'s
+launches), and
 {"ok": true,
 "device": {...}}.
 Without a CUDA device it exits 1 at once.
@@ -344,6 +352,13 @@ WGRAD = {"wgrad3x3_s1": (WGRAD_SOURCES[torch.bfloat16], "dip_tpu/ops/pallas_wgra
 KATE_DZ = [(1, 2 * h, 2 * h, 128) for h in (16, 32, 64, 128, 256)]
 AM_DZ = [(1, 2 * h, 2 * h, 128) for _, h, _, _, _ in AM_SEAMS]
 S2D_RAGGED = [(2, 12, 20, 24), (1, 6, 10, 5)]
+# the up2 moments' kernels against the PyTorch formula and the backward's
+# plain version on the same inputs: f32 sums of the same f32 products in
+# other orders, within MOMENTS_TOL of the largest value, then (mean, var,
+# dx) one rounding to bf16 each, which may fall on either side of a bf16
+# step: one bf16 step (2^-7 of the value) apart
+MOMENTS_TOL = 1e-5
+MOMENTS_SRC = ("dip_tpu_torch/csrc/up2_moments.cu", "dip_tpu/ops/up_conv.py:310")
 # weight gradients against their plain versions, max-normalised: f32 is
 # true f32 on both sides (sums in another order); bf16 takes the same bf16
 # operands and f32 sums on both sides, the tolerance of a bf16 result
@@ -1115,6 +1130,98 @@ def phase_wgrad_fit_axis_parity(dev: torch.device) -> dict:
     return stats
 
 
+def _moments_close(got: torch.Tensor, want: torch.Tensor, what: str, step: float) -> float:
+    """max|got - want|; raises past MOMENTS_TOL of max|want| plus `step`
+    of each value (one rounding to the output dtype)."""
+    g, w = got.double(), want.double()
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+        raise RuntimeError(f"up2 moments {what}: non-finite values")
+    err = (g - w).abs()
+    over = (err - MOMENTS_TOL * w.abs().max() - step * w.abs()).max().item()
+    if over > 0:
+        raise RuntimeError(f"up2 moments {what} disagrees with its plain version by "
+                           f"{over:.3e} past its tolerance (largest {w.abs().max().item():.3e})")
+    return err.max().item()
+
+
+def phase_moments_parity(dev: torch.device) -> dict:
+    """The up2 moments' kernels (`hopper_moments.moments`, `moments_bwd`)
+    against the PyTorch formula (`up2_moments_plain` and its f32 sums) and
+    `moments_bwd_plain` on the same inputs: at the five flagship seams' LR
+    tensors (1, h, h, 128) bf16, channel-planar as the fit gives them (the
+    NHWC view of cuDNN's NCHW output), and in the fits form, BATCH_FITS fits
+    of the top seam (f16 batch8's), each fit against the formula alone:
+    the f32 (mean, second) within MOMENTS_TOL of the largest, mean, var and
+    dx (random cotangents on both outputs, the backward of either side from
+    the kernel's stats) within it plus one bf16 step. Graph-timed at the
+    top seam, one fit and the fits form, beside the plain versions, with
+    their bounds (x read once forward; x read and dx written backward):
+    returns the kernels line's figures, "fwd" and "bwd", with the fits
+    form's under "fits"."""
+    from dip_tpu_torch.ops import hopper_moments as HM
+
+    bf16 = torch.bfloat16
+    step = 2.0 ** -7
+    stats = {k: {"max_abs_err": 0.0, "library_ms": None} for k in ("fwd", "bwd")}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = [(1, n, h, w, c) for n, h, w, c, _ in FLAGSHIP_SEAMS]
+    cases.append((BATCH_FITS, *cases[-1][1:]))
+    for b, n, h, w, c in cases:
+        # channel-planar, around a per-fit, per-channel offset as a conv's
+        # output before BatchNorm: (B, N, C, h, w) contiguous, viewed NHWC
+        off = torch.rand((b, 1, c, 1, 1), generator=gen, device=dev) * 2 - 1
+        xp = (torch.randn((b, n, c, h, w), generator=gen, device=dev) + off).to(bf16)
+        x = xp.permute(0, 1, 3, 4, 2)
+        if b == 1:
+            x = x[0]
+        g_mean = torch.randn((b, c), generator=gen, device=dev).to(bf16)
+        g_var = torch.randn((b, c), generator=gen, device=dev).to(bf16)
+        if b == 1:
+            g_mean, g_var = g_mean[0], g_var[0]
+        mean, var, st = HM.moments(x)
+        dx = HM.moments_bwd(x, st, g_mean, g_var)
+        torch.cuda.synchronize()
+        fits = x.unsqueeze(0) if b == 1 else x
+        errs = {"fwd": 0.0, "bwd": 0.0}
+        for f in range(b):
+            xf = fits[f]
+            pick = (lambda t: t) if b == 1 else (lambda t, f=f: t[f])
+            pm, pv = HM.up2_moments_plain(xf)
+            sums = torch.stack(HM._sums_plain(xf))
+            errs["fwd"] = max(errs["fwd"], _moments_close(pick(st), sums, "stats", 0.0),
+                              _moments_close(pick(mean), pm, "mean", step),
+                              _moments_close(pick(var), pv, "var", step))
+            want = HM.moments_bwd_plain(xf, pick(st), pick(g_mean), pick(g_var))
+            got = dx if b == 1 else dx[f]
+            if got.stride() != xf.stride():
+                raise RuntimeError(f"up2 moments dx strides {got.stride()}, x's {xf.stride()}")
+            errs["bwd"] = max(errs["bwd"], _moments_close(got, want, "dx", step))
+        line = (f"[parity] up2 moments bf16 channel-planar {b} x {(n, h, w, c)}: fwd abs "
+                f"{errs['fwd']:.2e}, bwd abs {errs['bwd']:.2e}")
+        for k in ("fwd", "bwd"):
+            stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], errs[k])
+        if h == cases[-1][2]:
+            nbytes = x.numel() * x.element_size()
+            fig = {"fwd": (graph_ms(lambda: HM.moments(x), 50),
+                           graph_ms(lambda: [HM.up2_moments_plain(xf) for xf in fits], 5),
+                           *bound(0.0, "bf16", nbytes)),
+                   "bwd": (graph_ms(lambda: HM.moments_bwd(x, st, g_mean, g_var), 50),
+                           graph_ms(lambda: HM.moments_bwd_plain(x, st, g_mean, g_var), 5),
+                           *bound(0.0, "bf16", 2 * nbytes))}
+            for k, (ms, plain_ms, bound_ms, by) in fig.items():
+                line += (f" | {k} kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, bound "
+                         f"{bound_ms:.5f} ms ({by})")
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+                if b == 1:
+                    stats[k].update(row)
+                else:
+                    stats[k]["fits"] = dict(row, fits=b, shape=[b, n, h, w, c])
+            line += " [graph-timed]"
+        log(line)
+        del xp, x, dx, fits
+    return stats
+
+
 def phase_small_reference(dev: torch.device) -> None:
     """2-scale 128-channel skip nets at 32^2 (decoder seams at LR 8 and
     16): forward and all gradients on the card vs the CPU, same weights.
@@ -1336,7 +1443,9 @@ def path_launches(spec, steps: int, downsample_per_step: int = 0) -> dict:
     seam of a Skip (fused_scales) runs fwd (or fwd_carry where a skip
     branch hands it its carry), the s2d pack of dz, dgrad and wgrad a
     step, and fwd once more in the render (the zoo's other nets have no
-    seam); the weight-gradient kernels as wgrad_per_step says; the
+    seam); each bilinear fused seam's BatchNorm the up2 moments' forward
+    (the render's too) and backward; the weight-gradient kernels as
+    wgrad_per_step says; the
     downsample `downsample_per_step` times a step (an SR loss's) and once
     at each Lanczos post-down of every forward, the render's included."""
     from dip_tpu_torch.models import Skip
@@ -1345,12 +1454,14 @@ def path_launches(spec, steps: int, downsample_per_step: int = 0) -> dict:
     fused = fused_scales(model, input_size(spec)) if isinstance(model, Skip) else []
     n_seams = sum(fused)
     carried = sum(1 for i, f in enumerate(fused) if f and model.ch_skip[i] and model.seam_carry)
+    bilinear = sum(1 for i, f in enumerate(fused) if f and model.up_modes[i] == "bilinear")
     k3, k1 = wgrad_per_step(model)
     return {"fwd": (steps + 1) * (n_seams - carried), "fwd_carry": (steps + 1) * carried,
             "dgrad": steps * n_seams, "wgrad": steps * n_seams, "downsample":
             downsample_per_step * steps + post_downs(model) * (steps + 1),
             "s2d_pack": steps * n_seams,
-            "wgrad3x3_s1": k3 * steps, "wgrad1x1": k1 * steps}
+            "wgrad3x3_s1": k3 * steps, "wgrad1x1": k1 * steps,
+            "moments_fwd": (steps + 1) * bilinear, "moments_bwd": steps * bilinear}
 
 
 def run_fit(spec, dev: torch.device, card: str, prefix: str, tag: str, want: dict,
@@ -2242,6 +2353,8 @@ def phase_spatial(dev: torch.device, card: str) -> tuple[dict, dict]:
         (i0, t0), (i1, t1) = marks[0], marks[-1]
         ips = (i1 - i0) / (t1 - t0)
         want = {k: blocks * v for k, v in path_launches(spec, SPATIAL_STEPS).items()}
+        # row blocks take the up2 moments' PyTorch form (ops/up_conv.py)
+        want.update(moments_fwd=0, moments_bwd=0)
         loss = hist["loss"]
         out_shape = (1, *output_size(spec), spec.model.num_output_channels)
         log(f"[spatial] {tag}, SpatialEngine graphed: {ips:.2f} it/s (steps {i0 + 1}-{i1}) "
@@ -3002,6 +3115,7 @@ def main() -> int:
     wgrad = phase_wgrad_parity(dev)
     wgrad_fits = phase_wgrad_fit_axis_parity(dev)
     down_rows = phase_downsample_rows_parity(dev)
+    moments = phase_moments_parity(dev)
     phase_small_reference(dev)
     phase_zoo_small_reference(dev)
     launches, b1_ips = phase_main_path(dev, card)
@@ -3026,9 +3140,9 @@ def main() -> int:
     t0 = time.perf_counter()
     root = standins()
     phase_examples(dev, card, root)
-    phase_recipes(dev, card, root)
     phase_train(dev, card)
-    log(f"[examples] + [recipes] + [train]: {time.perf_counter() - t0:.1f} s | card {card}")
+    phase_recipes(dev, card, root)
+    log(f"[examples] + [train] + [recipes]: {time.perf_counter() - t0:.1f} s | card {card}")
     # each kernel's launches come from the main path that runs it: the
     # flagship fit for the seam's fwd, dgrad and wgrad and the s2d pack,
     # the SR fits for the carry-in forward and the downsample, the
@@ -3067,6 +3181,16 @@ def main() -> int:
         entry["sources"] = {str(d)[6:]: src for d, src in WGRAD_SOURCES.items()}
         entry["f32"] = dict(wgrad_fits[k]["f32"], launches=batch_f32_wgrad[k])
         entry["fits"] = BATCH_FITS
+        kernels.append(entry)
+    # the up2 moments: launches from the flagship fits, figures at the top
+    # seam; the fits form's launches from [batch], figures at B = 8 there
+    for k in ("fwd", "bwd"):
+        kernels.append(_entry(f"up2_moments_{k}", MOMENTS_SRC, launches[f"moments_{k}"],
+                              moments[k]))
+        fits_row = dict(moments[k], **moments[k]["fits"])
+        entry = _entry(f"up2_moments_{k} (fit axis)", MOMENTS_SRC,
+                       batch_launches[f"moments_{k}"], fits_row)
+        entry.update(fits=fits_row["fits"], shape=fits_row["shape"])
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))

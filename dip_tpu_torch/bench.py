@@ -62,7 +62,8 @@ PORT_KERNELS = ("up_conv_fwd_mma_kernel", "up_conv_dgrad_mma_kernel", "up_conv_d
                 "up_conv_wgrad_mma_kernel", "up_conv_wgrad_sum_kernel",
                 "up_conv_wgrad_sum_rows_kernel", "s2d_pack_kernel",
                 "wgrad_f32_kernel", "wgrad_sum_kernel",
-                "downsample_kernel")
+                "downsample_kernel", "up2_moments_partial_kernel", "up2_moments_finish_kernel",
+                "up2_moments_bwd_kernel")
 # the profile's kernel kinds, by substrings of the kernel's name, first match
 # wins (the port's kernels are PORT_KERNELS)
 KERNEL_KINDS = (("cuDNN/cuBLAS", ("cudnn", "xmma", "cutlass", "gemm", "convolve", "Nhwc", "Nchw")),

@@ -127,10 +127,17 @@ def load() -> ctypes.CDLL:
     # x, g, workspace, dW, fits, n, h, w, hx, wx, ci, co, x's and g's 4
     # strides, ks, halo, splits, tiles a split, slab row pitch, stream
     lib.dip_wgrad_f32_fits.argtypes = [ptr] * 4 + [i32] * 8 + [i64] * 8 + [i32] * 5 + [ptr]
+    # x, partials, mean, var, stats, x's 5 strides, fits, n, h, w, c, rows a
+    # tile, partial rows a fit, 8-value vectors, channels fastest, f32, stream
+    lib.dip_up2_moments_fwd.argtypes = [ptr] * 5 + [i64] * 5 + [i32] * 10 + [ptr]
+    # x, g_mean, g_var, stats, dx, x's 5 strides, fits, n, h, w, c, rows a
+    # tile, 8-value vectors, channels fastest, f32, stream
+    lib.dip_up2_moments_bwd.argtypes = [ptr] * 5 + [i64] * 5 + [i32] * 9 + [ptr]
     for fn in (lib.dip_up_conv_fwd, lib.dip_up_conv_dgrad, lib.dip_up_conv_wgrad,
                lib.dip_wgrad3x3_mma, lib.dip_wgrad1x1_mma, lib.dip_wgrad3x3_mma_fits,
                lib.dip_wgrad1x1_mma_fits, lib.dip_downsample,
-               lib.dip_s2d_pack, lib.dip_wgrad_f32_fits):
+               lib.dip_s2d_pack, lib.dip_wgrad_f32_fits, lib.dip_up2_moments_fwd,
+               lib.dip_up2_moments_bwd):
         fn.restype = i32
     _lib = lib
     return lib

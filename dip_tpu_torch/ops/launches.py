@@ -9,9 +9,10 @@ too.
 
 from __future__ import annotations
 
-from dip_tpu_torch.ops import hopper_resample, hopper_s2d, hopper_up_conv, hopper_wgrad
+from dip_tpu_torch.ops import (hopper_moments, hopper_resample, hopper_s2d, hopper_up_conv,
+                               hopper_wgrad)
 
-_MODULES = (hopper_up_conv, hopper_resample, hopper_s2d, hopper_wgrad)
+_MODULES = (hopper_up_conv, hopper_resample, hopper_s2d, hopper_wgrad, hopper_moments)
 
 
 def counts() -> dict[str, int]:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from dip_tpu_torch.ops.consts import device_const as _const
+from dip_tpu_torch.ops.hopper_moments import _gram_diag, up2_moments_hopper, up2_moments_plain
 from dip_tpu_torch.ops.hopper_up_conv import up2_conv3x3_hopper
 from dip_tpu_torch.ops.rows import Rows, allsum, gather_rows, halo_blocks
 from dip_tpu_torch.utils.profiling import span
@@ -259,13 +260,6 @@ def _up2_conv3x3_rows(x: Rows, kernel: torch.Tensor, up_mode: str, pad_mode: str
     return Rows(out)
 
 
-def _gram_diag(L: int) -> np.ndarray:
-    """The diagonal of U^T U for the (2L, L) bilinear up2 matrix U."""
-    g = np.full(L, 1.25, np.float32)
-    g[0] = g[-1] = 1.625
-    return g
-
-
 def up2_moments(x: torch.Tensor | Rows, up_mode: str) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact per-channel (mean, var) of upsample(x, 2, up_mode) over
     (N, H, W), computed on the LR tensor with f32 sums and returned in x's
@@ -275,7 +269,10 @@ def up2_moments(x: torch.Tensor | Rows, up_mode: str) -> tuple[torch.Tensor, tor
     models/blocks.py takes them, and the variance is clamped at 0: with
     products rounded to bf16 (the JAX package's form), a channel whose
     variance is a thousandth of its squared mean came out negative and
-    BN's rsqrt made the fit NaN (flash/no-flash at lr 0.1 in bf16)."""
+    BN's rsqrt made the fit NaN (flash/no-flash at lr 0.1 in bf16).
+    A bilinear tensor on a CUDA device goes through the Hopper kernels of
+    ops/hopper_moments.py, which take bf16 and f32 and raise on any other
+    dtype; on the CPU the PyTorch formula computes them."""
     with span("dip.kernels.seam"):
         f32 = torch.float32
         if isinstance(x, Rows):
@@ -286,21 +283,12 @@ def up2_moments(x: torch.Tensor | Rows, up_mode: str) -> tuple[torch.Tensor, tor
                     xf.var((0, 1, 2), unbiased=False).to(x.dtype))
         if up_mode != "bilinear":
             raise ValueError(f"unsupported upsample mode for moments: {up_mode!r}")
-        n, h, w, c = x.shape
+        _, h, w, _ = x.shape
         if h < 2 or w < 2:
             raise ValueError(f"up2_moments needs h, w >= 2, got {h}x{w}")
-        xf = x.to(f32)
-        mean = xf.mean((0, 1, 2))
-        g0h = _const(_gram_diag, h, f32, x.device)
-        g0w = _const(_gram_diag, w, f32, x.device)
-        s0 = torch.einsum("nhwc,h,w->c", xf * xf, g0h, g0w)
-        sh = 0.75 * torch.einsum("nhwc,w->c", xf[:, :-1] * xf[:, 1:], g0w)
-        sw = 0.75 * torch.einsum("nhwc,h->c", xf[:, :, :-1] * xf[:, :, 1:], g0h)
-        sd = 0.28125 * ((xf[:, :-1, :-1] * xf[:, 1:, 1:]).sum((0, 1, 2))
-                        + (xf[:, 1:, :-1] * xf[:, :-1, 1:]).sum((0, 1, 2)))
-        second = (s0 + sh + sw + sd) / (n * 4 * h * w)
-        var = torch.clamp(second - mean * mean, min=0.0)
-        return mean.to(x.dtype), var.to(x.dtype)
+        if not x.is_cuda:
+            return up2_moments_plain(x)
+        return up2_moments_hopper(x)
 
 
 def _up2_moments_rows(x: Rows, up_mode: str) -> tuple[torch.Tensor, torch.Tensor]:
